@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all started together) and links the objects into one shared
 library with a plain C interface, which is loaded with ``ctypes``.  The
 library is built at first use into ``_build/`` beside this file (listed in
 ``.gitignore``), named by a hash of the sources, so an edited source is
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -35,12 +36,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signatures: (argtypes) of each entry point; all return an int error code
 SIGNATURES = {
-    # device, m, q, r_out, N, r, stream
-    "pytdscf_mgs_qr_c64": [_I, _P, _P, _P, _I, _I, _P],
+    # device, m, q, r_out, qwork (or NULL), N, r, stream
+    "pytdscf_mgs_qr_c64": [_I, _P, _P, _P, _P, _I, _I, _P],
     # device, H, Rt, v, out, status, scratch, nc, M, r, kmax,
     # scale_re, scale_im, thresh, conserve, stream
     "pytdscf_lanczos_expm_c64": [
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P,
+    ],
+    # device, psi, L, W, R, part, out, B, K, X, Rd, d, wl, wr, Tk, Tx, stream
+    "pytdscf_heff_lo_c64": [
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    # device, sig, L, R, part, out, B, K, X, Rd, w, Tk, Tx, stream
+    "pytdscf_keff_lo_c64": [
+        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
 }
 
@@ -65,17 +74,38 @@ def build() -> tuple[Path, str, float]:
     if out.exists():
         return out, "", 0.0
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc, tag = _nvcc(), f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    # one nvcc per source, all started together (one nvcc call given
+    # several sources compiles them one after the other)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        failed = [f"{src.name} ({proc.returncode}):\n{text}"
+                  for src, proc, text in zip(sources, procs, logs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
         )
-    os.replace(tmp, out)  # atomic: no process loads a half-written file
-    return out, proc.stderr, seconds
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}):\n{link.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: no process loads a half-written file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, "".join(logs), time.perf_counter() - t0
 
 
 @functools.cache

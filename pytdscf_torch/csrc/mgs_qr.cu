@@ -13,7 +13,10 @@
 // and the arithmetic are small.  Design: one block of 256 threads keeps Q
 // in dynamic shared memory, column-major (Q[j * N + n]), so that the dot
 // products <Q_j|v> (one warp per column j, lanes over n) and the update
-// v -= Q c (threads over n) both read consecutive banks.
+// v -= Q c (threads over n) both read consecutive banks.  A Q too large for
+// shared memory (the large-bond chain's (1024, 64) edge gauge) lives in a
+// device-memory scratch the wrapper passes, with the same layout; it then
+// sits in L2.
 //
 // Layout: m (N, r) complex64 row-major (torch's contiguous layout, float2
 // interleaved), Q (N, r) row-major, R (r, r) row-major.  N >= r >= 1.
@@ -84,10 +87,11 @@ __device__ float norm2(const float2* x, int N, float* red) {
 
 __global__ void __launch_bounds__(kThreads)
 mgs_qr_kernel(const float2* __restrict__ m, float2* __restrict__ q_out,
-              float2* __restrict__ r_out, int N, int r) {
+              float2* __restrict__ r_out, float2* qwork, int N, int r) {
   extern __shared__ float2 smem[];
-  float2* Q = smem;            // (r, N): column j at Q + j * N
-  float2* v = Q + (size_t)N * r;  // (N) current column
+  // (r, N): column j at Q + j * N; in shared memory unless qwork is given
+  float2* Q = qwork != nullptr ? qwork : smem;
+  float2* v = qwork != nullptr ? smem : Q + (size_t)N * r;  // (N) current column
   float2* e = v + N;           // (N) completion vector
   float2* c1 = e + N;          // (r) first-pass coefficients
   float2* c2 = c1 + r;         // (r) second-pass coefficients
@@ -139,18 +143,21 @@ mgs_qr_kernel(const float2* __restrict__ m, float2* __restrict__ q_out,
 
 }  // namespace
 
+// qwork: nullptr (Q in shared memory) or an (r, N) complex64 scratch.
 extern "C" int pytdscf_mgs_qr_c64(int device, const void* m, void* q,
-                                  void* r_out, int N, int r, void* stream) {
+                                  void* r_out, void* qwork, int N, int r,
+                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float2) * ((size_t)N * r + 2 * (size_t)N + 3 * (size_t)r);
+  const size_t q_smem = qwork != nullptr ? 0 : (size_t)N * r;
+  const size_t smem = sizeof(float2) * (q_smem + 2 * (size_t)N + 3 * (size_t)r);
   err = cudaFuncSetAttribute(mgs_qr_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   mgs_qr_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(m), static_cast<float2*>(q),
-      static_cast<float2*>(r_out), N, r);
+      static_cast<float2*>(r_out), static_cast<float2*>(qwork), N, r);
   return (int)cudaGetLastError();
 }
 

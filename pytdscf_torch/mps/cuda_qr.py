@@ -20,8 +20,10 @@ is 0.35 MFLOP over 58 KB) but the serial chain of r columns, each a few
 block-wide reductions.  The design keeps that chain on one SM: one block of
 256 threads holds Q in shared memory, column-major so that the per-column
 dot products and updates read consecutive banks, and runs all r columns in
-one launch.  Q must fit the block's 227 KB of shared memory (N·r ≤ ~28k
-complex entries; the chain's largest is 240 × 30).
+one launch.  Q sits in the block's 227 KB of shared memory when it fits
+(N·r ≤ ~28k complex entries; the 184-site chain's largest is 240 × 30);
+a larger Q (the χ=1024 chain's (1024, 64) edge gauge) sits in a
+device-memory scratch the wrapper allocates, read through L2.
 """
 
 from __future__ import annotations
@@ -72,10 +74,10 @@ def mgs_qr_plain(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return Q, R
 
 
-def smem_bytes(N: int, r: int) -> int:
-    """Dynamic shared memory of one launch: Q, v, e and three coefficient
-    columns, complex64."""
-    return 8 * (N * r + 2 * N + 3 * r)
+def smem_bytes(N: int, r: int, q_in_smem: bool = True) -> int:
+    """Dynamic shared memory of one launch: Q (unless it is in device
+    memory), v, e and three coefficient columns, complex64."""
+    return 8 * ((N * r if q_in_smem else 0) + 2 * N + 3 * r)
 
 
 def mgs_qr(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -100,15 +102,19 @@ def mgs_qr(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         raise TypeError(f"the CUDA mgs_qr takes complex64, got {m.dtype}")
     if not m.is_contiguous():
         raise ValueError("the CUDA mgs_qr takes a contiguous matrix")
+    qwork = None
     if smem_bytes(N, r) > MAX_SMEM:
-        raise ValueError(
-            f"mgs_qr: Q of shape ({N}, {r}) does not fit one block's shared "
-            "memory (streaming Q from device memory is not implemented)"
-        )
+        if smem_bytes(N, r, q_in_smem=False) > MAX_SMEM:
+            raise ValueError(
+                f"mgs_qr: the columns of an ({N}, {r}) matrix do not fit "
+                "one block's shared memory"
+            )
+        qwork = torch.empty((r, N), dtype=m.dtype, device=m.device)
     q = torch.empty((N, r), dtype=m.dtype, device=m.device)
     rmat = torch.empty((r, r), dtype=m.dtype, device=m.device)
     code = _cuda.load().pytdscf_mgs_qr_c64(
-        m.device.index, m.data_ptr(), q.data_ptr(), rmat.data_ptr(), N, r,
+        m.device.index, m.data_ptr(), q.data_ptr(), rmat.data_ptr(),
+        None if qwork is None else qwork.data_ptr(), N, r,
         torch.cuda.current_stream(m.device).cuda_stream,
     )
     _cuda.check(code, "mgs_qr")

@@ -13,12 +13,19 @@ the intermediates small, so the cost does not depend on whether
 ``torch.einsum`` finds a contraction path itself.  float32 products stay
 exact: the package turns TF32 off at import.
 
+The relaxed-Krylov matvecs (``heff_apply_lo`` / ``keff_apply_lo``) are the
+single-bf16-pass form of the first two chains: bf16 operands and chain
+intermediates, float32 accumulation.  They are the plain versions of the
+``cuda_matvec`` kernels, which round at the same points.
+
 Index conventions: site tensor ``psi[l, n, r]``; MPO core ``W[a, i, j, b]``
 (i = bra, j = ket); left block ``L[b_bra, a, b_ket]``; right block
 ``R[b_bra, a, b_ket]`` indexed by the bonds facing the block.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -30,20 +37,62 @@ from pytdscf_torch.mps.cuda_qr import mgs_qr_plain as _mgs_qr  # noqa: F401
 CHOLESKY_QR_MIN_R = 192
 
 
-def thin_qr(mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Thin QR by MGS(×2) with canonical completion of dead columns.
+def _cholesky_qr(
+    m: torch.Tensor, shift_rel: float = 1.0e-06, iters: int = 3
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Thin QR by shifted CholeskyQR³ — the large-bond gauge.
 
-    Every device runs the same convention as the JAX package on an
-    accelerator: the CUDA kernel for a CUDA tensor, its plain version for a
-    CPU tensor (``cuda_qr.mgs_qr``).  The completions of rank-deficient
-    columns set the frame through which the fixed-D sweep grows amplitude
-    into padded bond channels, so LAPACK's QR is not a substitute.
+    Three rounds of (Gram → shifted Cholesky → triangular solve), all
+    matmul-shaped.  Orthogonality of the live columns lands at float32
+    round-off; exact-zero input columns stay EXACTLY zero in Q and their R
+    rows are zeroed (dead columns get a unit diagonal patch in the Gram
+    matrix instead of a completion), so ``Q·R = m`` holds for the
+    rank-deficient padded states too.
     """
-    if mat.shape[1] >= CHOLESKY_QR_MIN_R:
-        raise NotImplementedError(
-            f"thin QR at r={mat.shape[1]} >= {CHOLESKY_QR_MIN_R} is "
-            "CholeskyQR³, not ported yet (ROADMAP A1)"
-        )
+    N, r = m.shape
+    live = torch.sum(torch.abs(m), dim=0) > 0
+    q = m
+    R_acc = None
+    # float32 Gram entries carry ~sqrt(N)·eps relative noise; columns whose
+    # true Gram eigenvalue sits below that floor can come out negative,
+    # which breaks Cholesky (NaN).  Both shifts must clear the floor.
+    real = m.real.dtype
+    eps = torch.finfo(real).eps
+    noise_floor = 16.0 * math.sqrt(float(N)) * eps
+    one = torch.ones((), dtype=real, device=m.device)
+    for it in range(iters):
+        g = q.mH @ q
+        d = torch.diagonal(g).real
+        # first round: Fukaya-style shift for near-singular live columns;
+        # refinements: noise-floor shift only.  Dead columns: unit diagonal.
+        rel = max(shift_rel if it == 0 else 0.0, noise_floor)
+        s = rel * torch.clamp_min(torch.max(d), 1e-30)
+        g = g + torch.diag(torch.where(live, s, one)).to(g.dtype)
+        L = torch.linalg.cholesky(g)
+        # q·L⁻ᴴ, i.e. solve X·Lᴴ = q
+        q = torch.linalg.solve_triangular(L.mH, q, upper=True, left=False)
+        Rit = L.mH
+        R_acc = Rit if R_acc is None else Rit @ R_acc
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    q = torch.where(live[None, :], q, zero)
+    R_acc = torch.where(live[:, None], R_acc, zero)
+    return q, R_acc
+
+
+def thin_qr(mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Thin QR of an (N, r) matrix, the JAX package's accelerator gauge.
+
+    ``r >= CHOLESKY_QR_MIN_R`` and ``N >= r``: shifted CholeskyQR³
+    (plain torch on every device).  Otherwise MGS(×2) with canonical
+    completion of dead columns: the CUDA kernel for a CUDA tensor, its
+    plain version for a CPU tensor (``cuda_qr.mgs_qr``).  The completions
+    of rank-deficient columns set the frame through which the fixed-D
+    sweep grows amplitude into padded bond channels, so LAPACK's QR is not
+    a substitute.
+    """
+    N, r = mat.shape
+    if r >= CHOLESKY_QR_MIN_R and N >= r:
+        return _cholesky_qr(mat)
     return cuda_qr.mgs_qr(mat.contiguous())
 
 
@@ -72,6 +121,73 @@ def keff_apply(L, R, sig) -> torch.Tensor:
     """σ'[b, x] = Σ L[b,a,k] · R[x,a,r] · σ[k,r]."""
     t1 = torch.einsum("kr,xar->kxa", sig, R)
     return torch.einsum("kxa,bak->bx", t1, L)
+
+
+# ------------------------------------------------- relaxed (planar bf16)
+def planar_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Complex tensor → (re, im) bfloat16 planes."""
+    return x.real.to(torch.bfloat16), x.imag.to(torch.bfloat16)
+
+
+def _cx_einsum(eq, a, b, out_dtype=torch.bfloat16):
+    """Complex einsum on planar pairs: four real products of the bf16
+    planes, float32 accumulation, ``out_dtype`` storage (bf16 keeps the
+    chain intermediates half-width)."""
+    ar, ai = a[0].float(), a[1].float()
+    br, bi = b[0].float(), b[1].float()
+    re = torch.einsum(eq, ar, br) - torch.einsum(eq, ai, bi)
+    im = torch.einsum(eq, ar, bi) + torch.einsum(eq, ai, br)
+    return re.to(out_dtype), im.to(out_dtype)
+
+
+def heff_apply_lo(Lp, Wp, Rp, psi: torch.Tensor) -> torch.Tensor:
+    """Single-bf16-pass H_eff matvec with planar operands/intermediates.
+
+    ``Lp``/``Wp``/``Rp``: ``planar_bf16`` pairs of the blocks (split once
+    per site, outside the Krylov loop).  Same contraction order as
+    :func:`heff_apply`: ψ·R (over r) → ·W (over j,c) → ·L (over a,k),
+    with T1 and T2 rounded to bf16 and σ kept in float32."""
+    t1 = _cx_einsum("kjr,xcr->kjxc", planar_bf16(psi), Rp)
+    t2 = _cx_einsum("kjxc,aijc->kiax", t1, Wp)
+    sr, si = _cx_einsum("kiax,bak->bix", t2, Lp, out_dtype=torch.float32)
+    return torch.complex(sr, si).to(psi.dtype)
+
+
+def keff_apply_lo(Lp, Rp, sig: torch.Tensor) -> torch.Tensor:
+    """Single-bf16-pass K_eff matvec (see :func:`heff_apply_lo`)."""
+    t1 = _cx_einsum("kr,xar->kxa", planar_bf16(sig), Rp)
+    sr, si = _cx_einsum("kxa,bak->bx", t1, Lp, out_dtype=torch.float32)
+    return torch.complex(sr, si).to(sig.dtype)
+
+
+def make_hmatvec_lo(L, W, R, shape, fac):
+    """Relaxed H_eff matvec on flat Krylov vectors of a site of ``shape``.
+
+    The bf16 operands are built once here, outside the Krylov loop
+    (``cuda_matvec.heff_operands``); each call goes through
+    ``cuda_matvec.heff_lo`` (the kernel on CUDA, the plain version on the
+    CPU) and is then scaled by ``fac``, the real env log-scale factor, in
+    the working precision."""
+    from pytdscf_torch.mps import cuda_matvec as CM
+
+    ops = CM.heff_operands(L, W, R)
+
+    def mv(vec):
+        return (CM.heff_lo(ops, vec.reshape(shape)) * fac).reshape(-1)
+
+    return mv
+
+
+def make_kmatvec_lo(L, R, shape, fac):
+    """Relaxed K_eff matvec (see :func:`make_hmatvec_lo`)."""
+    from pytdscf_torch.mps import cuda_matvec as CM
+
+    ops = CM.keff_operands(L, R)
+
+    def mv(vec):
+        return (CM.keff_lo(ops, vec.reshape(shape)) * fac).reshape(-1)
+
+    return mv
 
 
 def renorm_block_left(L, a_bra, W, a_ket) -> torch.Tensor:

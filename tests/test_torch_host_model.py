@@ -1,8 +1,9 @@
 """The port's host-side model building equals the JAX package's, bit for bit.
 
-``pytdscf_torch`` carries copies of the numpy modules that build the
-singlet-fission chain (basis, operators, models, lattice), because it must
-import without JAX.  These tests hold the copies to the originals, and
+``pytdscf_torch`` carries copies of the numpy modules that build its
+models (basis, operators, models, lattice, model), because it must import
+without JAX; the Liouville copies are held to theirs in
+``tests/test_torch_liouville.py``.  These tests hold the copies to the originals, and
 check that the port really loads neither JAX nor ``pytdscf_tpu``.
 """
 
@@ -92,6 +93,7 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "import pytdscf_torch, pytdscf_torch.convert, pytdscf_torch.mps.tdvp\n"
         "import pytdscf_torch.mps.integrator, pytdscf_torch.models\n"
+        "import pytdscf_torch.model, pytdscf_torch.mps.cuda_matvec\n"
         "bad = [m for m in sys.modules if m.startswith('pytdscf_tpu')\n"
         "       or (m.split('.')[0] == 'jax' and sys.modules[m] is not None)]\n"
         "assert not bad, bad\n"

@@ -146,11 +146,6 @@ def test_gauge_moves_match_jax(shape, jax_mgs_gauge):
         _close(t_b, j_b)
 
 
-def test_thin_qr_refuses_choleskyqr_widths():
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        TK.thin_qr(torch.zeros((400, 200), dtype=torch.complex128))
-
-
 @pytest.mark.parametrize("scale,conserve", [
     (-0.3j, True), (-0.3, True), (-2.0j, False),
 ])
@@ -197,9 +192,3 @@ def test_krylov_expm_full_space_is_never_capped():
     )
     assert t_k == int(j_k) == 6 and not t_bad and not bool(j_bad)
     _close(t_out, j_out, 1e-10)
-
-
-def test_arnoldi_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        TI.krylov_expm(lambda x: x, torch.ones(4, dtype=torch.complex128),
-                       -1j, 1e-9, arnoldi=True)

@@ -114,6 +114,8 @@ def test_wrapper_runs_plain_version_on_cpu():
 @pytest.mark.parametrize("shape,dead", [
     ((240, 30), []), ((240, 30), [3, 7, 29]), ((90, 30), []), ((64, 30), []),
     ((8, 8), [5]), ((240, 8), []), ((64, 1), []),
+    # the χ=1024 chain's edge gauge: Q too large for shared memory
+    ((1024, 64), []), ((1024, 64), [5, 63]),
 ])
 def test_kernel_matches_plain_on_card(cuda, shape, dead):
     m_np = _cx(np.random.default_rng(7), *shape)
