@@ -35,11 +35,30 @@ Phases (any failure exits nonzero, before the result line):
       the electron populations within 6e-5 of its gold entry
       (``bench_expected.json``), heff_lo + keff_lo launches equal to the
       relaxed matvecs ``krylov_stats`` counts, no plain-version call;
+   c. one more step under ``torch.profiler``;
+5. the same radical pair at ``bench_chi.py``'s own default rung,
+   "throughput" (its ``BENCH_PENV=1`` semantics): bf16x3 iteration-0
+   matvecs and every in-sweep environment transfer through the bf16x3
+   chain kernel, relaxed Krylov from iteration 1:
+   a. build, ``right_canonicalize``, and the chain kernel against its plain
+      version on the chain's own operands through each of its four
+      mappings (environment transfer left and right, H_eff and K_eff
+      matvec) at the bulk site and two edge sites: relative error < 2e-5,
+      which the plain version with its lo passes dropped must fail; a
+      second launch bit-identical; the lo planes of the operands nonzero;
+      at the bulk the kernel's, the plain version's and one complex64
+      ``torch.einsum``'s times;
+   b. one warm-up and ten timed steps, counted: as 4b, and 34 environment
+      transfers per step through the kernel (374), one "high" matvec
+      launch per Krylov call;
    c. one more step under ``torch.profiler``.
 
 The second-to-last line of stdout is a JSON object with each kernel's
-launches, error and times; the last line is the result
-``{"ok": true, "device": {...}}``.  The script imports no JAX.
+launches, error, times and bound (the least time the card could take for
+the timed call's work: its operations at the card's peak for their type or
+its bytes at the memory rate, whichever is larger; H100 SXM data sheet
+peaks at 700 W); the last line is the result ``{"ok": true, "device":
+{...}}``.  The script imports no JAX.
 """
 
 from __future__ import annotations
@@ -77,6 +96,16 @@ RP_BULK_SITE = 8  # a (1024, 4, 1024) site
 # more (the output rounded to bf16) 1.4e-3 to 1.7e-3, so the bar sits
 # between (random operands read more: tests/test_torch_matvec.py)
 MATVEC_TOL = 1.0e-04
+# bf16x3 chain kernel vs its plain version, relative to the output norm:
+# the same splits and rounding points, the float32 sums in the tensor
+# cores' own order (1.5e-7 to 9.1e-6 on the chain's operands); the plain
+# version with its lo passes dropped (one bf16 pass) reads 5.5e-4 to
+# 1.4e-2 there and must fail it
+CHAIN_TOL = 2.0e-05
+# the card's peaks (H100 SXM data sheet, dense, at 700 W)
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -108,6 +137,26 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(flops: float, peak: float, nbytes: float) -> dict:
+    """The least time (ms) for ``flops`` operations at ``peak`` FLOP/s and
+    ``nbytes`` of operands read and output written at the memory rate: the
+    larger of the two, and which one it is."""
+    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def chain_flops(B, K, X, Rd, din, dout, wl, wr, has_w=True) -> float:
+    """Real FLOPs of one pass of the four-tensor chain (8 per complex
+    multiply-add): T1 over r, the W mix, the output over (a, k)."""
+    mix = K * X * wl * dout * din * wr if has_w else 0
+    return 8.0 * (K * din * X * wr * Rd + mix + B * dout * X * wl * K)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def phase_device():
@@ -208,7 +257,16 @@ def check_lanczos(engine, dt_au, results):
             f"nc={ch[0].shape[0]} k_used={st_k[0]} ‖Δψ‖={dpsi:.3e} "
             f"max|Δ|={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         worst = max(worst, err)
-        results.setdefault("lanczos_expm", (ms, plain_ms))
+        if "lanczos_expm" not in results:
+            # k_used matvecs of Σ_c H_c·(ψ·Rt_c): nc·(M·r² + M²·r) complex
+            # multiply-adds each (the Krylov recurrence around them is
+            # smaller by M)
+            H, Rt = ch
+            nc, M, r = H.shape[0], v.shape[0], v.shape[1]
+            flops = 8.0 * st_k[0] * nc * (M * r * r + M * M * r)
+            results["lanczos_expm"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                **bound(flops, PEAK_FP32, nbytes(H, Rt, v, out_k))}
     return worst
 
 
@@ -239,13 +297,18 @@ def check_mgs(name: str, m, timed: bool = False):
               float(torch.max(torch.abs(rm - r_p))))
     line = (f"mgs_qr {name} ({n}, {r}): orth {orth:.3e} rec {rec:.3e} "
             f"‖ΔQ‖ {dq:.3e} ‖ΔR‖ {dr:.3e} max|Δ| {err:.3e}")
-    ms = plain_ms = None
+    times = None
     if timed:
-        ms = cuda_ms(lambda: CQ.mgs_qr(m), 200)
-        plain_ms = cuda_ms(lambda: CQ.mgs_qr_plain(m), 10)
-        line += f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        times = {"ms": cuda_ms(lambda: CQ.mgs_qr(m), 200),
+                 "plain_ms": cuda_ms(lambda: CQ.mgs_qr_plain(m), 10),
+                 "library_ms": cuda_ms(lambda: torch.linalg.qr(m), 50),
+                 # MGS×2: two passes of N·r² complex multiply-adds
+                 **bound(8.0 * 2 * n * r * r, PEAK_FP32, nbytes(m, q, rm))}
+        line += (f" kernel {times['ms']:.4f} ms, plain "
+                 f"{times['plain_ms']:.4f} ms, torch.linalg.qr "
+                 f"{times['library_ms']:.4f} ms")
     log(line)
-    return err, rm, ms, plain_ms
+    return err, rm, times
 
 
 def check_qr(results):
@@ -259,13 +322,13 @@ def check_qr(results):
     worst = 0.0
     for name, m_np in (("full rank", full), ("rank deficient", deficient)):
         m = torch.as_tensor(m_np, dtype=torch.complex64, device="cuda")
-        err, rm, ms, plain_ms = check_mgs(name, m, timed=True)
+        err, rm, times = check_mgs(name, m, timed=True)
         if name == "rank deficient":
             for k in (3, 7, 29):
                 require(abs(complex(rm[k, k])) < 1e-6,
                         f"mgs_qr: dead column {k} has a nonzero R diagonal")
         worst = max(worst, err)
-        results.setdefault("mgs_qr", (ms, plain_ms))
+        results.setdefault("mgs_qr", times)
     return worst
 
 
@@ -302,15 +365,27 @@ def profile_step(engine, dt_au) -> None:
             f"{e.self_device_time_total / 1e3:.2f} ms")
 
 
-def reset_counts() -> None:
-    """Zero every kernel wrapper's launch and plain-call counts."""
+def counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
     from pytdscf_torch.mps import cuda_lanczos as CL
     from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_qr as CQ
+    from pytdscf_torch.mps import cuda_renorm as CR
 
-    for fn in (CL.lanczos_expm, CQ.mgs_qr, CM.heff_lo, CM.keff_lo):
-        fn.launches = 0
-        fn.plain_calls = 0
+    return {"lanczos_expm": CL.lanczos_expm, "mgs_qr": CQ.mgs_qr,
+            "heff_lo": CM.heff_lo, "keff_lo": CM.keff_lo,
+            "renorm_hi": CR.renorm_hi, "matvec_hi": CR.matvec_hi}
+
+
+def reset_counts() -> None:
+    """Zero every kernel wrapper's launch and plain-call counts."""
+    for c in counters().values():
+        c.launches = 0
+        c.plain_calls = 0
+
+
+def plain_calls() -> int:
+    return sum(c.plain_calls for c in counters().values())
 
 
 def phase_chain(times) -> dict:
@@ -320,6 +395,7 @@ def phase_chain(times) -> dict:
     from pytdscf_torch import units
     from pytdscf_torch.mps import cuda_lanczos as CL
     from pytdscf_torch.mps import cuda_qr as CQ
+    from pytdscf_torch.mps import cuda_renorm as CR
 
     dt_au = DT_FS / units.au_in_fs
     t0 = time.perf_counter()
@@ -363,18 +439,20 @@ def phase_chain(times) -> dict:
             f"lanczos launches {n_lz} != {TIMED_STEPS} × {per_step}")
     require(n_qr == TIMED_STEPS * 2 * (engine.nsite - 1),
             f"qr launches {n_qr} != {TIMED_STEPS} × {2 * (engine.nsite - 1)}")
-    require(CL.lanczos_expm.plain_calls == CQ.mgs_qr.plain_calls == 0,
-            "main path: a plain version ran on the card")
+    require(CR.renorm_hi.launches == CR.matvec_hi.launches == 0,
+            "the bf16x3 kernel ran on the float32 chain")
+    require(plain_calls() == 0, "main path: a plain version ran on the card")
     profile_step(engine, dt_au)
     return {"lanczos_expm": (n_lz, err_lz), "mgs_qr": (n_qr, err_qr)}
 
 
 # ------------------------------------------------- χ=1024 radical pair
-def build_rp_engine(device):
-    """bench_chi.py's defaults (its lines 100-189) on the port, at the
-    "balanced" precision rung: the 8+8-nucleus split-electron radical-pair
-    Liouvillian, χ=1024, the singlet product state plus ε=1e-4 noise from
-    ``default_rng(42)``, Arnoldi with relaxed Krylov from iteration 1."""
+def build_rp_engine(device, preset: str):
+    """bench_chi.py's defaults (its lines 100-189) on the port, at a
+    precision rung ("balanced" or "throughput"): the 8+8-nucleus
+    split-electron radical-pair Liouvillian, χ=1024, the singlet product
+    state plus ε=1e-4 noise from ``default_rng(42)``, Arnoldi with relaxed
+    Krylov from iteration 1."""
     from pytdscf_torch.config import Config
     from pytdscf_torch.model import Model
     from pytdscf_torch.models.radical_pair import (
@@ -410,7 +488,7 @@ def build_rp_engine(device):
     config = Config(
         space="liouville", integrator="arnoldi", thresh_exp=RP_THRESH,
         max_krylov=RP_KRYLOV, dtype="complex64", conserve_norm=False,
-    ).with_precision_preset("balanced")
+    ).with_precision_preset(preset)
     return TDVPEngine([noisy], model.hamiltonian, config, device), ele
 
 
@@ -450,8 +528,8 @@ def check_qr_gauge(engine) -> float:
         l, d, r = psi.shape
         m = (psi.reshape(l * d, r) if kind == "QR"
              else psi.permute(2, 1, 0).reshape(r * d, l)).contiguous()
-        err, _, _, _ = check_mgs(f"{kind} operand of site {p}", m,
-                                 timed=shape == big and kind == "QR")
+        err, _, _ = check_mgs(f"{kind} operand of site {p}", m,
+                              timed=shape == big and kind == "QR")
         worst = max(worst, err)
     return worst
 
@@ -469,15 +547,26 @@ def check_matvec(engine, results) -> dict:
     right = engine.build_right_env_stack()
     cases = []
     for p in (RP_BULK_SITE, 3, 0):
-        (L, _), (R, _) = left[p], right[engine.nsite - 1 - p]
+        (L, _), (R, _), W = left[p], right[engine.nsite - 1 - p], engine.W[p]
+        L1 = left[p + 1][0]
         psi = engine.cores[0][p].contiguous()
-        cases.append(("heff_lo", p, CM.heff_operands(L, engine.W[p], R), psi))
         _, sig = K.qr_right(psi)
-        cases.append(("keff_lo", p, CM.keff_operands(left[p + 1][0], R),
-                      sig.contiguous()))
+        sig = sig.contiguous()
+        (l, d, r), wl, wr = psi.shape, W.shape[0], W.shape[3]
+        # at the bulk: one complex64 torch.einsum of the same chain (the
+        # library-call yardstick, never called by the port) and its FLOPs
+        lib_h = lib_k = None
+        if p == RP_BULK_SITE:
+            lib_h = (lambda: torch.einsum("kjr,xcr,aijc,bak->bix", psi, R, W,
+                                          L),
+                     chain_flops(l, l, r, r, d, d, wl, wr))
+            lib_k = (lambda: torch.einsum("kr,xar,bak->bx", sig, R, L1),
+                     chain_flops(r, r, r, r, 1, 1, wr, wr, has_w=False))
+        cases.append(("heff_lo", p, CM.heff_operands(L, W, R), psi, lib_h))
+        cases.append(("keff_lo", p, CM.keff_operands(L1, R), sig, lib_k))
     del left, right
     worst: dict[str, float] = {}
-    for name, p, ops, v in cases:
+    for name, p, ops, v, timed in cases:
         kernel = getattr(CM, name)
         plain = K.heff_apply_lo if name == "heff_lo" else K.keff_apply_lo
         planes = [t.unbind(-1) for t in ops]
@@ -494,7 +583,7 @@ def check_matvec(engine, results) -> dict:
         require(rel < MATVEC_TOL, f"{name} site {p}: rel {rel:.3e} vs plain")
         line = (f"{name} site {p}: v {tuple(v.shape)} out {tuple(got.shape)} "
                 f"rel {rel:.3e} max|Δ| {err:.3e}")
-        if p == RP_BULK_SITE:
+        if timed is not None:
             # the bar catches one bf16 rounding more: the plain output
             # rounded to bf16 must fail it
             coarse = torch.complex(want.real.to(torch.bfloat16).float(),
@@ -506,35 +595,148 @@ def check_matvec(engine, results) -> dict:
             line += f" (bf16-rounded output: rel {rel_coarse:.3e})"
             ms = cuda_ms(lambda: kernel(ops, v), 20)
             plain_ms = cuda_ms(lambda: plain(*planes, v), 5)
-            results[name] = (ms, plain_ms)
-            line += f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            lib, flops = timed
+            lib_ms = cuda_ms(lib, 5)
+            results[name] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms,
+                             **bound(flops, PEAK_BF16, nbytes(v, *ops, got))}
+            line += (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"torch.einsum {lib_ms:.4f} ms")
         log(line)
         worst[name] = max(worst.get(name, 0.0), err)
     return worst
 
 
-def phase_radical_pair(times) -> dict:
-    """The χ=1024 radical-pair Liouville MPDO of bench_chi.py: 1 warm-up
-    and 10 timed steps, then bench_chi.py's invariants and its gold
-    populations."""
+def check_chain3(engine, results) -> dict:
+    """The bf16x3 chain kernel against its plain version on the card, on
+    the chain's own operands after ``right_canonicalize``, through each of
+    its four mappings: the environment transfer left and right, the H_eff
+    and K_eff matvec, at the bulk site (the first two timed, beside one
+    complex64 ``torch.einsum`` of the same chain) and two edge sites
+    (ragged tiles, MPO widths 1 and 7)."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_renorm as CR
+    from pytdscf_torch.mps import kernels as K
+
+    def heff_plain(ops, v, passes=3):
+        return K.chain3_plain(K.hilo(v), *ops, passes=passes)
+
+    def keff_plain(ops, v, passes=3):
+        return K.chain3_plain(K.hilo(v.unsqueeze(1)), *ops,
+                              passes=passes)[:, 0, :]
+
+    left = engine.build_left_env_stack()
+    right = engine.build_right_env_stack()
+    cases = []
+    for p in (RP_BULK_SITE, 3, 0):
+        (L, _), (R, _), W = left[p], right[engine.nsite - 1 - p], engine.W[p]
+        psi = engine.cores[0][p].contiguous()
+        a, sig = K.qr_right(psi)
+        sig = sig.contiguous()
+        lops = K.renorm_left_operands(L, a, W, a)
+        rops = K.renorm_right_operands(R, psi, W, psi)
+        hops = CR.heff_operands(L, W, R)
+        kops = CR.keff_operands(left[p + 1][0], R)
+        (l, d, r), wl, wr = psi.shape, W.shape[0], W.shape[3]
+        timing = {  # library call, bf16x3 FLOPs, complex64 bytes moved
+            "renorm_hi": (
+                lambda L=L, a=a, W=W: torch.einsum(
+                    "bak,bio,aijc,kjp->ocp", L, a.conj(), W, a),
+                3 * chain_flops(r, l, r, l, wl, wr, d, d),
+                nbytes(L, a, W, a) + 8 * r * wr * r),
+            "matvec_hi": (
+                lambda L=L, W=W, R=R, psi=psi: torch.einsum(
+                    "kjr,xcr,aijc,bak->bix", psi, R, W, L),
+                3 * chain_flops(l, l, r, r, d, d, wl, wr),
+                nbytes(psi, L, W, R, psi)),
+        } if p == RP_BULK_SITE else {}
+        # (counter, label, wrapper, plain, args, split operands whose lo
+        # planes must be nonzero (W can be exact in bf16: left out), timing)
+        cases += [
+            ("renorm_hi", f"left, site {p}", CR.renorm_left_hi,
+             K.renorm_block_left_hi, (L, a, W, a), (*lops[:2], lops[3]),
+             timing.get("renorm_hi")),
+            ("renorm_hi", f"right, site {p}", CR.renorm_right_hi,
+             K.renorm_block_right_hi, (R, psi, W, psi),
+             (*rops[:2], rops[3]), None),
+            ("matvec_hi", f"H_eff, site {p}", CR.heff_hi, heff_plain,
+             (hops, psi), (K.hilo(psi), hops.L, hops.R),
+             timing.get("matvec_hi")),
+            ("matvec_hi", f"K_eff, bond {p}", CR.keff_hi, keff_plain,
+             (kops, sig), (K.hilo(sig), kops.L, kops.R), None),
+        ]
+    del left, right
+    worst: dict[str, float] = {}
+    for name, label, kernel, plain, args, split, timed in cases:
+        got = kernel(*args)
+        again = kernel(*args)
+        want = plain(*args)
+        one_pass = plain(*args, passes=1)
+        torch.cuda.synchronize()
+        where = f"{name} {label}"
+        require(bool(torch.isfinite(got).all()), f"{where}: not finite")
+        require(torch.equal(got, again),
+                f"{where}: a second launch gave another result")
+        norm = torch.linalg.vector_norm(want)
+        rel = float(torch.linalg.vector_norm(got - want) / norm)
+        rel_one = float(torch.linalg.vector_norm(one_pass - want) / norm)
+        err = float(torch.max(torch.abs(got - want)))
+        require(rel < CHAIN_TOL, f"{where}: rel {rel:.3e} vs plain")
+        require(rel_one > CHAIN_TOL, f"{where}: the one-pass plain version "
+                f"reads {rel_one:.3e}, inside the bar")
+        # (the trivial (1, 1, 1) edge block is exactly 1: no lo part)
+        require(all(bool((t[..., 2:] != 0).any()) for t in split
+                    if t[..., 0].numel() > 1),
+                f"{where}: an operand's lo planes are all zero")
+        line = (f"{where}: out {tuple(got.shape)} rel {rel:.3e} max|Δ| "
+                f"{err:.3e} (one pass: rel {rel_one:.3e}); lo planes nonzero")
+        if timed is not None:
+            lib, flops, moved = timed
+            times = {"ms": cuda_ms(lambda: kernel(*args), 10),
+                     "plain_ms": cuda_ms(lambda: plain(*args), 3),
+                     "library_ms": cuda_ms(lib, 3),
+                     **bound(flops, PEAK_BF16, moved)}
+            results[name] = times
+            line += (f"; kernel {times['ms']:.4f} ms, plain "
+                     f"{times['plain_ms']:.4f} ms, torch.einsum "
+                     f"{times['library_ms']:.4f} ms, bound "
+                     f"{times['bound_ms']:.4f} ms")
+        log(line)
+        worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def phase_radical_pair(times, preset: str) -> dict:
+    """The χ=1024 radical-pair Liouville MPDO of bench_chi.py at a
+    precision rung: the kernel checks, 1 warm-up and 10 timed steps, then
+    bench_chi.py's invariants, its gold populations and the launch counts.
+    Returns {kernel: (launches, max |Δ| against plain or None)}."""
     import torch
 
     from pytdscf_torch.mps import cuda_lanczos as CL
     from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_qr as CQ
+    from pytdscf_torch.mps import cuda_renorm as CR
 
+    tag = f"radical pair [{preset}]"
     t0 = time.perf_counter()
-    engine, ele = build_rp_engine("cuda")
-    log(f"radical pair: {engine.nsite} sites, χ={CHI}, MPO widths "
+    engine, ele = build_rp_engine("cuda", preset)
+    log(f"{tag}: {engine.nsite} sites, χ={CHI}, MPO widths "
         f"{sorted({int(w.shape[0]) for w in engine.W[1:]})}, built in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     engine.right_canonicalize()
     tr0 = engine.trace()
-    log(f"radical pair: right_canonicalize + trace {tr0.real:.6f}"
+    log(f"{tag}: right_canonicalize + trace {tr0.real:.6f}"
         f"{tr0.imag:+.2e}j in {time.perf_counter() - t0:.2f} s")
-    err = check_matvec(engine, times)
-    err_qr = check_qr_gauge(engine)
+    high = engine.config.env_precision == "high"
+    if high:
+        err = check_chain3(engine, times)
+    else:
+        err = check_matvec(engine, times)
+        err["mgs_qr"] = check_qr_gauge(engine)
+    torch.cuda.empty_cache()
 
     # ---- the main path, counted: 1 warm-up + RP_STEPS timed steps
     engine.krylov_stats()
@@ -553,8 +755,8 @@ def phase_radical_pair(times) -> dict:
         step_s.append(time.perf_counter() - t0)
     n_h, n_k = CM.heff_lo.launches, CM.keff_lo.launches
     n_qr, n_lz = CQ.mgs_qr.launches, CL.lanczos_expm.launches
-    plain = (CM.heff_lo.plain_calls + CM.keff_lo.plain_calls
-             + CQ.mgs_qr.plain_calls)
+    n_r, n_m = CR.renorm_hi.launches, CR.matvec_hi.launches
+    plain = plain_calls()
     avg_k, calls, capped, relaxed = engine.krylov_stats()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tr = engine.trace()
@@ -565,13 +767,14 @@ def phase_radical_pair(times) -> dict:
     with open(Path(__file__).resolve().parent / "bench_expected.json") as fh:
         gold = json.load(fh)[RP_KEY]
     drift = float(np.max(np.abs(pops - np.asarray(gold["pops"]))))
-    log(f"radical pair: warm-up {warm_s:.3f} s; s/step "
+    log(f"{tag}: warm-up {warm_s:.3f} s; s/step "
         f"{[round(s, 4) for s in step_s]} (median {median:.4f}); "
         f"~{tflops:.1f} algorithmic TFLOP/s; avg Krylov {avg_k:.3f} over "
         f"{calls} calls, cap hits {capped}; relaxed matvecs {relaxed}; "
-        f"launches: heff_lo {n_h}, keff_lo {n_k}, qr {n_qr}, lanczos {n_lz}; "
-        f"peak device memory {peak_gb:.2f} GB")
-    log(f"radical pair: trace {tr.real:.6f}{tr.imag:+.2e}j; populations "
+        f"launches: heff_lo {n_h}, keff_lo {n_k}, qr {n_qr}, lanczos {n_lz}, "
+        f"renorm_hi {n_r}, matvec_hi {n_m}; peak device memory "
+        f"{peak_gb:.2f} GB")
+    log(f"{tag}: trace {tr.real:.6f}{tr.imag:+.2e}j; populations "
         f"{np.round(pops, 6).tolist()}; drift from gold [{RP_KEY}] "
         f"{drift:.2e} (tol {gold['tol']:g})")
     # bench_chi.py's invariants and its blessed-population check
@@ -596,9 +799,21 @@ def phase_radical_pair(times) -> dict:
     steps, per_step = 1 + RP_STEPS, len(mgs_moves(engine))
     require(n_qr == steps * per_step,
             f"qr launches {n_qr} != {steps} × {per_step}")
+    if high:
+        # every in-sweep transfer (nsite − 1 per half-sweep) and every
+        # exact-prefix matvec (one per Krylov call) went through the kernel
+        transfers = steps * 2 * (engine.nsite - 1)
+        require(n_r == transfers,
+                f"renorm_hi launches {n_r} != {steps} × "
+                f"{2 * (engine.nsite - 1)}")
+        require(n_m == calls,
+                f"matvec_hi launches {n_m} != {calls} Krylov calls")
+    else:
+        require(n_r == n_m == 0, "the bf16x3 kernel ran on the float32 rung")
     profile_step(engine, RP_DT)
-    return {"heff_lo": (n_h, err["heff_lo"]), "keff_lo": (n_k, err["keff_lo"]),
-            "mgs_qr": (n_qr, err_qr)}
+    counts = {"heff_lo": n_h, "keff_lo": n_k, "mgs_qr": n_qr,
+              "renorm_hi": n_r, "matvec_hi": n_m}
+    return {name: (n, err.get(name)) for name, n in counts.items() if n}
 
 
 KERNELS = [
@@ -610,6 +825,12 @@ KERNELS = [
      "pytdscf_tpu/mps/pallas_matvec.py:175"),
     ("keff_lo", "pytdscf_torch/csrc/matvec_lo.cu",
      "pytdscf_tpu/mps/pallas_matvec.py:244"),
+    # one kernel, two wrappers: the environment transfer, and the "high"
+    # matvec that the JAX package runs as an XLA einsum at Precision.HIGH
+    ("renorm_hi", "pytdscf_torch/csrc/chain_bf16x3.cu",
+     "pytdscf_tpu/mps/pallas_renorm.py:223"),
+    ("matvec_hi", "pytdscf_torch/csrc/chain_bf16x3.cu",
+     "pytdscf_tpu/mps/pallas_renorm.py:223"),
 ]
 
 
@@ -623,21 +844,24 @@ def main() -> int:
     phase_device()
     phase_build()
 
-    times: dict[str, tuple[float, float]] = {}
-    chain = phase_chain(times)
-    torch.cuda.empty_cache()
-    rp = phase_radical_pair(times)
+    times: dict[str, dict] = {}
+    paths = [phase_chain(times)]
+    for preset in ("balanced", "throughput"):
+        torch.cuda.empty_cache()
+        paths.append(phase_radical_pair(times, preset))
 
     kernels = []
     for name, source, replaces in KERNELS:
-        # launches: summed over the main paths that run the kernel
-        runs = [path[name] for path in (chain, rp) if name in path]
+        # launches: summed over the main paths that run the kernel; the
+        # error: the largest against plain over the paths that check it
+        runs = [path[name] for path in paths if name in path]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(n for n, _ in runs),
-            "max_abs_err": max(e for _, e in runs),
-            "ms": times[name][0], "plain_ms": times[name][1],
+            "max_abs_err": max(e for _, e in runs if e is not None),
+            **{key: times[name][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,12 @@ SIGNATURES = {
     "pytdscf_keff_lo_c64": [
         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
+    # device, psi, L, W (or NULL), R, part, out, B, K, X, Rd, din, dout,
+    # wl, wr, Tk, Tx, G, stream
+    "pytdscf_chain3_c64": [
+        _I, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
 }
 
 

@@ -31,10 +31,19 @@ class Config:
     space: Literal["hilbert", "liouville"] = "hilbert"
     #: Renormalise after each local exponential (valid for Hermitian H).
     conserve_norm: bool = True
-    # The exact matvecs and the environment transfer are float32 with TF32
-    # off.  The JAX package's ``matvec_precision``/``env_precision`` knobs
-    # ("high" = bf16x3, "default" = one bf16 pass) return with the
-    # hand-built bf16x3 products (ROADMAP A6).
+    #: Precision of the exact-prefix Krylov matvecs (iterations
+    #: ``< relax_after``, or all of them without ``krylov_relaxed``):
+    #: "highest" = float32 with TF32 off; "high" = bf16x3 (every operand
+    #: split into bf16 hi and lo, three bf16 products per real product,
+    #: float32 sums, about 16 mantissa bits; on CUDA the
+    #: ``cuda_renorm.heff_hi``/``keff_hi`` kernel).  The JAX package's
+    #: one-pass "default" is not ported (ROADMAP A6).
+    matvec_precision: Literal["highest", "high"] = "highest"
+    #: Precision of the in-sweep environment transfers, as
+    #: ``matvec_precision`` (on CUDA "high" runs ``cuda_renorm.renorm_*_hi``).
+    #: The env stacks built between sweeps and ``expectation`` stay
+    #: "highest", as in the JAX package.
+    env_precision: Literal["highest", "high"] = "highest"
 
     #: Relaxed (inexact) Krylov: matvec iterations ``>= relax_after`` run
     #: the single-bf16-pass matvec (bf16 operands and chain intermediates,
@@ -55,6 +64,17 @@ class Config:
     #: Computation dtype for the tensor network.
     dtype: str = "complex128"
 
+    def __post_init__(self):
+        for name in ("matvec_precision", "env_precision"):
+            value = getattr(self, name)
+            if value == "default":
+                raise NotImplementedError(
+                    f"{name}='default': the one-bf16-pass product is not "
+                    "ported yet (ROADMAP A6)"
+                )
+            if value not in ("highest", "high"):
+                raise ValueError(f"{name}={value!r}: highest | high")
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
@@ -62,25 +82,34 @@ class Config:
         """Accuracy-versus-throughput rungs of the large-bond work (the JAX
         package's presets, without its TPU routing switches):
 
+        * ``"throughput"`` — bf16x3 iteration-0 matvecs and env transfer;
+          Krylov iterations >= 1 run the single-bf16-pass matvec.
         * ``"balanced"`` — float32-exact iteration-0 matvecs and env
-          transfer; Krylov iterations >= 1 run the single-bf16-pass matvec.
+          transfer; iterations >= 1 single-pass bf16.
         * ``"precise"`` — two float32-exact prefix iterations; iterations
           >= 2 single-pass bf16.
         * ``"exact"`` — every product float32-exact, no relaxation.
-        * ``"throughput"`` needs bf16x3 products, which Hopper has no mode
-          for: raises until they are built (ROADMAP A6).
         """
         if preset == "throughput":
-            raise NotImplementedError(
-                "precision preset 'throughput' needs bf16x3 matvec and env "
-                "products, not ported yet (ROADMAP A6)"
+            return self.replace(
+                matvec_precision="high", env_precision="high",
+                krylov_relaxed=True, relax_after=1,
             )
         if preset == "balanced":
-            return self.replace(krylov_relaxed=True, relax_after=1)
+            return self.replace(
+                matvec_precision="highest", env_precision="highest",
+                krylov_relaxed=True, relax_after=1,
+            )
         if preset == "precise":
-            return self.replace(krylov_relaxed=True, relax_after=2)
+            return self.replace(
+                matvec_precision="highest", env_precision="highest",
+                krylov_relaxed=True, relax_after=2,
+            )
         if preset == "exact":
-            return self.replace(krylov_relaxed=False)
+            return self.replace(
+                matvec_precision="highest", env_precision="highest",
+                krylov_relaxed=False,
+            )
         raise ValueError(
             f"unknown precision preset {preset!r}: "
             "throughput | balanced | precise | exact"

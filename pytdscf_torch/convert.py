@@ -26,7 +26,8 @@ class FusedMPO:
         return self.fused
 
 
-def from_numpy(cores, fused, config: Config, device="cpu") -> TDVPEngine:
+def from_numpy(cores, fused, config: Config, device="cuda") -> TDVPEngine:
     """A port engine holding ``cores`` (per-state lists of (l, n, r) numpy
-    arrays, centre at site 0) under the fused MPO ``fused``."""
+    arrays, centre at site 0) under the fused MPO ``fused``, on the card
+    unless the caller asks for the CPU (without a card this raises)."""
     return TDVPEngine(cores, FusedMPO(fused), config, device)

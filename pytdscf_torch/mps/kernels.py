@@ -18,6 +18,11 @@ single-bf16-pass form of the first two chains: bf16 operands and chain
 intermediates, float32 accumulation.  They are the plain versions of the
 ``cuda_matvec`` kernels, which round at the same points.
 
+The bf16x3 forms (``"high"`` precision: ``heff_apply_hi``,
+``keff_apply_hi``, ``renorm_block_left_hi`` / ``_right_hi``) all run one
+plain chain, :func:`chain3_plain`, on operands split into bf16 hi and lo
+planes (:func:`hilo`): the plain version of the ``cuda_renorm`` kernel.
+
 Index conventions: site tensor ``psi[l, n, r]``; MPO core ``W[a, i, j, b]``
 (i = bra, j = ket); left block ``L[b_bra, a, b_ket]``; right block
 ``R[b_bra, a, b_ket]`` indexed by the bonds facing the block.
@@ -188,6 +193,114 @@ def make_kmatvec_lo(L, R, shape, fac):
         return (CM.keff_lo(ops, vec.reshape(shape)) * fac).reshape(-1)
 
     return mv
+
+
+# ------------------------------------------------------ bf16x3 ("high")
+def hilo(x: torch.Tensor) -> torch.Tensor:
+    """Complex tensor → ``(*x.shape, 4)`` bf16 (re_hi, im_hi, re_lo, im_lo).
+
+    hi = bf16(x) and lo = bf16(x − hi), both rounded to nearest even, from
+    the float32 value (the JAX package's ``pallas_renorm._hilo`` /
+    ``_hilo_planes``): hi + lo carries about 16 mantissa bits."""
+    v = torch.view_as_real(x).float()
+    hi = v.to(torch.bfloat16)
+    lo = (v - hi.float()).to(torch.bfloat16)
+    return torch.cat([hi, lo], dim=-1).contiguous()
+
+
+def _split_trunc(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 → (hi, lo) float32 tensors of bf16 values: hi by clearing the
+    low 16 bits, lo = bf16(t − hi) (``pallas_renorm._split_hilo``)."""
+    hi = (t.view(torch.int32) & -65536).view(torch.float32)
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _dot3(eq, x, y, passes):
+    """bf16x3 real product xh·yh + xh·yl + xl·yh, each a float32 einsum of
+    bf16 values (exact products, float32 sums); ``passes=1`` keeps xh·yh."""
+    (xh, xl), (yh, yl) = x, y
+    out = torch.einsum(eq, xh, yh)
+    if passes == 3:
+        out = out + torch.einsum(eq, xh, yl) + torch.einsum(eq, xl, yh)
+    return out
+
+
+def _cx_dot3(eq, x, y, passes):
+    """Complex product on ((re_hi, re_lo), (im_hi, im_lo)) planes →
+    (re, im) float32."""
+    xr, xi = x
+    yr, yi = y
+    re = _dot3(eq, xr, yr, passes) - _dot3(eq, xi, yi, passes)
+    im = _dot3(eq, xr, yi, passes) + _dot3(eq, xi, yr, passes)
+    return re, im
+
+
+def _hl_planes(t: torch.Tensor):
+    f = t.float()
+    return (f[..., 0], f[..., 2]), (f[..., 1], f[..., 3])
+
+
+def chain3_plain(psi, L, W, R, passes: int = 3) -> torch.Tensor:
+    """bf16x3 chain out[b,i,x] = Σ L[b,a,k]·W[a,i,j,c]·R[x,c,r]·ψ[k,j,r]
+    on :func:`hilo` operands (complex64 result): the plain version of
+    ``csrc/chain_bf16x3.cu`` and the counterpart of the JAX package's
+    ``pallas_renorm._renorm3_kernel`` in its H_eff roles, rounding at its
+    points: split operands, T1 and T2 accumulated in float32 and split by
+    truncation, three bf16 products per real product.  ``passes=1`` drops
+    every lo pass (one bf16 pass), for showing that a bar catches it."""
+    t1 = _cx_dot3("kjr,xcr->kjxc", _hl_planes(psi), _hl_planes(R), passes)
+    t1 = tuple(_split_trunc(t) for t in t1)
+    t2 = _cx_dot3("kjxc,aijc->kiax", t1, _hl_planes(W), passes)
+    t2 = tuple(_split_trunc(t) for t in t2)
+    return torch.complex(*_cx_dot3("kiax,bak->bix", t2, _hl_planes(L), passes))
+
+
+def renorm_left_operands(L, a_bra, W, a_ket):
+    """(ψ, L, W, R) chain operands of L'[o,c,p] (the roles of
+    ``pallas_renorm.renorm_left_pallas``): ψ = L (b,a,k), L = Ā (o,i,b),
+    W (i,c,a,j), R = A_ket (p,j,k)."""
+    return (hilo(L), hilo(torch.conj_physical(a_bra).permute(2, 1, 0)),
+            hilo(W.permute(1, 3, 0, 2)), hilo(a_ket.permute(2, 1, 0)))
+
+
+def renorm_right_operands(R, b_bra, W, b_ket):
+    """(ψ, L, W, R) chain operands of R'[o,c,p]: ψ = R (b,a,k),
+    L = B̄ (o,i,b), W (i,c,a,j), R = B_ket (p,j,k)."""
+    return (hilo(R), hilo(torch.conj_physical(b_bra)),
+            hilo(W.permute(1, 0, 3, 2)), hilo(b_ket))
+
+
+def eye_mpo(w: int, like: torch.Tensor) -> torch.Tensor:
+    """The identity over an MPO bond of width w as a (w, 1, 1, w) core:
+    K_eff is the H_eff chain with d = 1 and this W."""
+    eye = torch.eye(w, dtype=like.dtype, device=like.device)
+    return eye.reshape(w, 1, 1, w)
+
+
+def renorm_block_left_hi(L, a_bra, W, a_ket, passes: int = 3):
+    """:func:`renorm_block_left` at bf16x3 (``env_precision="high"``)."""
+    ops = renorm_left_operands(L, a_bra, W, a_ket)
+    return chain3_plain(*ops, passes=passes).to(L.dtype)
+
+
+def renorm_block_right_hi(R, b_bra, W, b_ket, passes: int = 3):
+    """:func:`renorm_block_right` at bf16x3 (``env_precision="high"``)."""
+    ops = renorm_right_operands(R, b_bra, W, b_ket)
+    return chain3_plain(*ops, passes=passes).to(R.dtype)
+
+
+def heff_apply_hi(L, W, R, psi, passes: int = 3):
+    """:func:`heff_apply` at bf16x3 (``matvec_precision="high"``)."""
+    out = chain3_plain(hilo(psi), hilo(L), hilo(W), hilo(R), passes=passes)
+    return out.to(psi.dtype)
+
+
+def keff_apply_hi(L, R, sig, passes: int = 3):
+    """:func:`keff_apply` at bf16x3: the chain with d = 1 and W the
+    identity over the MPO bond."""
+    out = chain3_plain(hilo(sig.unsqueeze(1)), hilo(L),
+                       hilo(eye_mpo(L.shape[1], L)), hilo(R), passes=passes)
+    return out[:, 0, :].to(sig.dtype)
 
 
 def renorm_block_left(L, a_bra, W, a_ket) -> torch.Tensor:

@@ -16,8 +16,12 @@ each site:
 Two Krylov routes.  Lanczos (Hermitian H_eff, the small-bond chains): the
 whole exponential is one ``cuda_lanczos.lanczos_expm`` call, the kernel on
 CUDA.  Arnoldi (any H_eff, the Liouville MPDO): ``integrator.krylov_expm``
-drives the exact float32 einsum matvecs and, with ``krylov_relaxed``, the
-single-bf16-pass ``cuda_matvec`` kernels for iterations ``>= relax_after``.
+drives the exact float32 einsum matvecs (or, at ``matvec_precision="high"``,
+the bf16x3 ``cuda_renorm.heff_hi``/``keff_hi`` kernel) and, with
+``krylov_relaxed``, the single-bf16-pass ``cuda_matvec`` kernels for
+iterations ``>= relax_after``.  At ``env_precision="high"`` the in-sweep
+environment transfers run the same bf16x3 kernel
+(``cuda_renorm.renorm_left_hi``/``renorm_right_hi``).
 The Lanczos route reads nothing back to the host inside a sweep; the
 Arnoldi route reads one scalar per Krylov iteration (its stopping test).
 The Krylov telemetry stays on the device until
@@ -28,11 +32,13 @@ from __future__ import annotations
 
 import math
 import warnings
+from functools import partial
 
 import numpy as np
 import torch
 
 from pytdscf_torch.config import Config
+from pytdscf_torch.mps import cuda_renorm as CR
 from pytdscf_torch.mps import kernels as K
 from pytdscf_torch.mps.cuda_lanczos import (
     heff_channels,
@@ -57,21 +63,25 @@ def _arnoldi_expm(v, scale, fac, cfg, L, R, W=None):
 
     Returns ``(v', status, relaxed)``: ``status = [k_used, bad]`` (int32,
     on v's device) and the number of relaxed matvecs that ran.  The exact
-    matvecs are float32 einsums (TF32 off); with ``krylov_relaxed`` the
-    iterations ``k >= relax_after`` run the bf16 kernels."""
+    matvecs are float32 einsums (TF32 off) or, at ``matvec_precision=
+    "high"``, the bf16x3 chain (``cuda_renorm``); with ``krylov_relaxed``
+    the iterations ``k >= relax_after`` run the bf16 kernels."""
     shape = v.shape
+    high = cfg.matvec_precision == "high"
     if W is not None:
-        def mv(x):
-            return (K.heff_apply(L, W, R, x.reshape(shape)) * fac).reshape(-1)
-
+        apply = (partial(CR.heff_hi, CR.heff_operands(L, W, R)) if high
+                 else partial(K.heff_apply, L, W, R))
         mv_lo = (K.make_hmatvec_lo(L, W, R, shape, fac)
                  if cfg.krylov_relaxed else None)
     else:
-        def mv(x):
-            return (K.keff_apply(L, R, x.reshape(shape)) * fac).reshape(-1)
-
+        apply = (partial(CR.keff_hi, CR.keff_operands(L, R)) if high
+                 else partial(K.keff_apply, L, R))
         mv_lo = (K.make_kmatvec_lo(L, R, shape, fac)
                  if cfg.krylov_relaxed else None)
+
+    def mv(x):
+        return (apply(x.reshape(shape)) * fac).reshape(-1)
+
     out, k_used, bad = krylov_expm(
         mv, v.reshape(-1), scale, cfg.thresh_exp, cfg.max_krylov,
         cfg.conserve_norm, arnoldi=True, return_iterations=True,
@@ -110,13 +120,16 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
         psi_new = out.reshape(l, d, r)
     if last:
         return psi_new, None, None, [st_h], relaxed
+    high = cfg.env_precision == "high"
     if forward:
         site_out, sig = K.qr_right(psi_new)
-        raw = K.renorm_block_left(L, site_out, W, site_out)
+        renorm = CR.renorm_left_hi if high else K.renorm_block_left
+        raw = renorm(L, site_out, W, site_out)
         l_sys, l_env = lL, lR
     else:
         sig, site_out = K.lq_left(psi_new)
-        raw = K.renorm_block_right(R, site_out, W, site_out)
+        renorm = CR.renorm_right_hi if high else K.renorm_block_right
+        raw = renorm(R, site_out, W, site_out)
         l_sys, l_env = lR, lL
     block, dl = _normalize_block(raw)
     log_new = l_sys + dl
@@ -143,10 +156,11 @@ class TDVPEngine:
     ``cores``: per-state lists of numpy site tensors (l, n, r), with the
     orthogonality centre at site 0; ``hamiltonian``: any object with
     ``fused_mpo(phys_dims)`` (a ``TensorHamiltonian``, or
-    ``convert.FusedMPO``); ``device``: where the tensors live.
+    ``convert.FusedMPO``); ``device``: where the tensors live, the card
+    unless the caller asks for the CPU (without a card this raises).
     """
 
-    def __init__(self, cores, hamiltonian, config: Config, device="cpu"):
+    def __init__(self, cores, hamiltonian, config: Config, device="cuda"):
         if config.relax != "none":
             raise NotImplementedError(
                 f"relax={config.relax!r}: relaxation is not ported yet "
@@ -156,6 +170,11 @@ class TDVPEngine:
             raise NotImplementedError(
                 "relaxed Krylov with Lanczos: the port relaxes Arnoldi "
                 "only (ROADMAP A2)"
+            )
+        if config.matvec_precision == "high" and config.integrator == "lanczos":
+            raise NotImplementedError(
+                "bf16x3 matvecs with Lanczos: the Lanczos kernel runs "
+                "float32 products only (ROADMAP A6)"
             )
         if config.splitting != "lt2":
             raise NotImplementedError(
@@ -169,6 +188,11 @@ class TDVPEngine:
             )
         self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TDVPEngine: no CUDA device; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU"
+            )
         self.dtype = _DTYPES[config.dtype]
         if self.device.type == "cuda" and self.dtype != torch.complex64:
             raise ValueError("the CUDA kernels take complex64: set dtype")

@@ -96,7 +96,7 @@ def test_slice_matches_jax_engine(jx):
     )
     fused = ham.fused_mpo(phys)
     cfg = Config(thresh_exp=1e-9, pytest_enabled=True)
-    port = convert.from_numpy(jax_engine.to_numpy(), fused, cfg)
+    port = convert.from_numpy(jax_engine.to_numpy(), fused, cfg, "cpu")
     for _ in range(3):
         lz0, qr0 = CL.lanczos_expm.plain_calls, CQ.mgs_qr.plain_calls
         jax_engine.propagate(DT)
@@ -104,7 +104,7 @@ def test_slice_matches_jax_engine(jx):
         # 2 half-sweeps × (6 H + 5 K) exponentials and 2 × 5 gauge moves
         assert CL.lanczos_expm.plain_calls - lz0 == 2 * (2 * NSITE - 1)
         assert CQ.mgs_qr.plain_calls - qr0 == 2 * (NSITE - 1)
-        mirror = convert.from_numpy(jax_engine.to_numpy(), fused, cfg)
+        mirror = convert.from_numpy(jax_engine.to_numpy(), fused, cfg, "cpu")
         assert port.distance(mirror) < 1e-7
         d = np.linalg.norm(
             _dense(port.to_numpy()[0]) - _dense(jax_engine.to_numpy()[0])
@@ -121,11 +121,11 @@ def test_slice_matches_jax_engine(jx):
 
 def test_convert_round_trip():
     cores, ham, phys = _start()
-    port = convert.from_numpy(cores, ham.fused_mpo(phys), Config())
+    port = convert.from_numpy(cores, ham.fused_mpo(phys), Config(), "cpu")
     back = port.to_numpy()
     assert all(np.array_equal(a, b) for a, b in zip(back[0], cores[0]))
     # the port's own Hamiltonian builds the same engine
-    own = TDVPEngine(cores, ham, Config())
+    own = TDVPEngine(cores, ham, Config(), "cpu")
     assert all(torch.equal(a, b) for a, b in zip(own.W, port.W))
 
 
@@ -133,20 +133,34 @@ def test_convert_round_trip():
     ("relax", "imaginary", "A7"),
     ("relax", "improved", "A7"),
     ("krylov_relaxed", True, "A2"),  # relaxed Krylov with Lanczos
+    ("matvec_precision", "high", "A6"),  # bf16x3 matvecs with Lanczos
     ("splitting", "suzuki4", "A10"),
     ("splitting", "yoshida4", "A10"),
 ])
 def test_outside_the_slice_raises(field, value, item):
     cores, ham, _ = _start()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TDVPEngine(cores, ham, Config(**{field: value}))
+        TDVPEngine(cores, ham, Config(**{field: value}), "cpu")
+
+
+def test_engine_defaults_to_the_card():
+    """With no device the engine and the converter go to the card; without
+    one they raise instead of falling back to the CPU."""
+    cores, ham, phys = _start()
+    if torch.cuda.is_available():
+        assert TDVPEngine(cores, ham, Config(dtype="complex64")).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TDVPEngine(cores, ham, Config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_numpy(cores, ham.fused_mpo(phys), Config())
 
 
 def test_multi_state_and_gates_raise():
     cores, ham, _ = _start()
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        TDVPEngine(cores + cores, ham, Config())
-    engine = TDVPEngine(cores, ham, Config())
+        TDVPEngine(cores + cores, ham, Config(), "cpu")
+    engine = TDVPEngine(cores, ham, Config(), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         engine.propagate(DT, kraus_op=object())
 
@@ -158,7 +172,7 @@ def test_slice_on_card_tracks_cpu(cuda):
     plain path on the CPU at float32 scale (the bound of
     tests/test_pallas_lanczos.py's engine test)."""
     cores, ham, _ = _start()
-    cpu = TDVPEngine(cores, ham, Config(thresh_exp=1e-9))
+    cpu = TDVPEngine(cores, ham, Config(thresh_exp=1e-9), "cpu")
     card = TDVPEngine(cores, ham, Config(thresh_exp=1e-9, dtype="complex64"),
                       device=cuda)
     for _ in range(3):
@@ -168,6 +182,6 @@ def test_slice_on_card_tracks_cpu(cuda):
         assert CL.lanczos_expm.launches - lz0 == 2 * (2 * NSITE - 1)
         assert CQ.mgs_qr.launches - qr0 == 2 * (NSITE - 1)
     mirror = convert.from_numpy(card.to_numpy(), ham.fused_mpo(card.phys_dims),
-                                Config())
+                                Config(), "cpu")
     assert cpu.distance(mirror) < 5e-5
     assert abs(cpu.expectation().real - card.expectation().real) < 1e-6

@@ -22,7 +22,10 @@ the start gives 1.6e-6 after three steps; exact runs keep it at 1e-12).
 Measured here: the two relaxed runs' dense ρ are 2.4e-7, 1.1e-6 and
 1.8e-6 apart after steps 1-3 and their electron populations 2.9e-7,
 while each sits ~3e-6 from the exact run; the bars are 1e-5 on ρ and
-1e-6 on the populations.
+1e-6 on the populations.  The "throughput" rung (bf16x3 iteration-0
+matvecs and env transfers) is held to the same bars: JAX's "high" products
+are exact on the CPU, so that gap is the bf16x3 error (measured 2.6e-6 on
+ρ, 2.3e-7 on the populations after three steps).
 """
 
 from __future__ import annotations
@@ -36,11 +39,17 @@ import torch
 
 from pytdscf_torch.config import Config
 from pytdscf_torch.mps import cuda_matvec as CM
+from pytdscf_torch.mps import cuda_renorm as CR
 from pytdscf_torch.mps.tdvp import TDVPEngine
 
 torch.set_num_threads(1)
 
 NUC, CHI, DT, STEPS = 2, 16, 0.5, 3
+# throughput rung against JAX (exact "high" on the CPU): measured 9.6e-7,
+# 2.0e-6 and 2.6e-6 on ρ after steps 1-3 and 2.3e-7 on the populations,
+# the size of the relaxed runs' own gap; the bars are the relaxed test's
+REL_HIGH_RHO = 1e-5
+REL_HIGH_POPS = 1e-6
 
 
 def _model(pkg: str, n_nuc: int, split: bool = True):
@@ -137,7 +146,7 @@ def test_liouville_model_identical(n_nuc, split):
         assert [c.shape[0] for c in tf[1:]] == [7] + [8] * 15 + [7]
 
 
-@pytest.mark.parametrize("preset", ["balanced", "precise", "exact"])
+@pytest.mark.parametrize("preset", ["throughput", "balanced", "precise", "exact"])
 def test_precision_presets_match_jax(preset):
     from pytdscf_tpu.config import Config as JConfig
 
@@ -145,30 +154,40 @@ def test_precision_presets_match_jax(preset):
     jax_cfg = JConfig().with_precision_preset(preset)
     for field in dataclasses.fields(port):
         assert getattr(port, field.name) == getattr(jax_cfg, field.name), field.name
-    # the port's products are the JAX "highest" rung: float32, TF32 off
-    assert (jax_cfg.matvec_precision, jax_cfg.env_precision) == ("highest", "highest")
+    # a preset sets both precisions, whatever the rung before it was
+    again = port.with_precision_preset("throughput").with_precision_preset(preset)
+    assert (again.matvec_precision, again.env_precision) == (
+        port.matvec_precision, port.env_precision)
 
 
 def test_throughput_preset_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        Config().with_precision_preset("throughput")
+    """The throughput rung runs ("high" = bf16x3); what it must not fall to,
+    the one-pass "default" product, raises naming ROADMAP A6, and so do
+    unknown presets and precisions."""
+    assert Config().with_precision_preset("throughput").env_precision == "high"
+    for field in ("matvec_precision", "env_precision"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+            Config(**{field: "default"})
+        with pytest.raises(ValueError):
+            Config(**{field: "fast"})
     with pytest.raises(ValueError):
         Config().with_precision_preset("fast")
 
 
-def _engines(jx, relaxed: bool, with_jax: bool = True):
+def _engines(jx, relaxed: bool, with_jax: bool = True, prec="highest"):
     basis, tmodel, phys, ele = _model("pytdscf_torch", NUC)
     _, jmodel, _, _ = _model("pytdscf_tpu", NUC)
     cores = _start(basis, phys, ele)
     kw = dict(space="liouville", integrator="arnoldi", thresh_exp=1e-9,
               max_krylov=7, conserve_norm=False, krylov_relaxed=relaxed,
-              relax_after=1)
+              relax_after=1, matvec_precision=prec, env_precision=prec)
     je = None
     if with_jax:
         je = jx.TDVPEngine([cores], jmodel.hamiltonian, jx.Config(
-            pallas_matvec=False, pallas_site=False, **kw))
+            pallas_matvec=False, pallas_site=False,
+            pallas_env=prec == "high", **kw))
         je.right_canonicalize()
-    te = TDVPEngine([cores], tmodel.hamiltonian, Config(**kw))
+    te = TDVPEngine([cores], tmodel.hamiltonian, Config(**kw), "cpu")
     te.right_canonicalize()
     return je, te, ele
 
@@ -236,8 +255,38 @@ def test_relaxed_needs_arnoldi_and_liouville_norm():
     cores = _start(basis, phys, ele, chi=4)
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         TDVPEngine([cores], model.hamiltonian,
-                   Config(space="liouville", krylov_relaxed=True))
+                   Config(space="liouville", krylov_relaxed=True), "cpu")
     te = TDVPEngine([cores], model.hamiltonian,
-                    Config(space="liouville", integrator="arnoldi"))
+                    Config(space="liouville", integrator="arnoldi"), "cpu")
     assert te.norm() == pytest.approx(abs(te.trace()))
     assert te.trace().real == pytest.approx(1.0, abs=1e-3)
+
+
+def test_liouville_throughput_matches_jax(jx):
+    """The "throughput" rung (bf16x3 iteration-0 matvecs and env transfers,
+    relaxed Krylov from iteration 1) against JAX's, whose "high" products
+    are exact on the CPU (and its Pallas transfer is gated off at χ=16), so
+    the gap is the bf16x3 error itself.  Every in-sweep transfer and every
+    exact-prefix matvec went through the port's bf16x3 plain chain."""
+    je, te, ele = _engines(jx, relaxed=True, prec="high")
+    _, bal, _ = _engines(jx, relaxed=True, with_jax=False)
+    r0, m0 = CR.renorm_hi.plain_calls, CR.matvec_hi.plain_calls
+    for _ in range(STEPS):
+        je.propagate(DT)
+        te.propagate(DT)
+        bal.propagate(DT)
+        assert _rel(_dense(te.to_numpy()[0]), je.contract_all()) < REL_HIGH_RHO
+    legs = (0,) * ele + (2, 2)
+    pops = np.real(np.einsum("aabb->ab", te.reduced_density_liouville(legs)))
+    j_pops = np.real(np.einsum(
+        "aabb->ab", np.asarray(je.reduced_density_liouville(legs))))
+    assert np.max(np.abs(pops - j_pops)) < REL_HIGH_POPS
+    # bf16x3 ran: the run left the balanced (float32-exact prefix) one
+    assert _rel(_dense(te.to_numpy()[0]), _dense(bal.to_numpy()[0])) > 1e-7
+    avg, calls, capped, relaxed = te.krylov_stats()
+    assert (calls, capped) == tuple(je.krylov_stats()[1:])
+    # 2 half-sweeps × (NSITE − 1) transfers a step; one exact-prefix matvec
+    # per Krylov call
+    nsite = te.nsite
+    assert CR.renorm_hi.plain_calls - r0 == STEPS * 2 * (nsite - 1)
+    assert CR.matvec_hi.plain_calls - m0 == calls
