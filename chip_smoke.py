@@ -21,7 +21,22 @@ Phases (any failure exits nonzero, before the result line):
       of 0.0182253410, norm within 1e-5 of 1, and exactly 734 Lanczos and
       366 QR kernel launches per step;
    c. one more step under ``torch.profiler`` (lines ``profile:``);
-4. the χ=1024 radical-pair Liouville MPDO (``bench_chi.py``'s defaults at
+4. the same chain through the port's entry point, ``Simulator.propagate``
+   (1 + 5 steps of 0.2 fs, thresh_sil 1e-6, complex64, properties written
+   each step), with the fused whole-site kernel on
+   (``PYTDSCF_PALLAS_WHOLESITE=1``):
+   a. the site kernel against its plain version on the chain's operands at
+      the bulk site and the exciton site, both directions (cores, psi_next
+      and blocks within 5e-6, |Δlog| < 5e-6, the same Krylov status, a
+      second launch bit-identical), timed at the bulk beside the same
+      update through the separate kernels;
+   b. the run, counted: ⟨H⟩ within 5e-6 of 0.0182253410, the norm,
+      ``autocorr.dat`` and ``populations.dat`` with 6 rows, exactly 360
+      site, 14 Lanczos and 6 QR launches per step, no plain call, and the
+      mean Krylov dimension within 0.05 of phase 3's over the same steps;
+   c. three bare ``propagate`` steps of its engine (s/step) and one under
+      ``torch.profiler``;
+5. the χ=1024 radical-pair Liouville MPDO (``bench_chi.py``'s defaults at
    the "balanced" precision rung: Arnoldi, relaxed Krylov from iteration
    1 through the bf16 matvec kernels):
    a. build, ``right_canonicalize`` on the card, and each matvec kernel
@@ -36,7 +51,7 @@ Phases (any failure exits nonzero, before the result line):
       (``bench_expected.json``), heff_lo + keff_lo launches equal to the
       relaxed matvecs ``krylov_stats`` counts, no plain-version call;
    c. one more step under ``torch.profiler``;
-5. the same radical pair at ``bench_chi.py``'s own default rung,
+6. the same radical pair at ``bench_chi.py``'s own default rung,
    "throughput" (its ``BENCH_PENV=1`` semantics): bf16x3 iteration-0
    matvecs and every in-sweep environment transfer through the bf16x3
    chain kernel, relaxed Krylov from iteration 1:
@@ -48,7 +63,7 @@ Phases (any failure exits nonzero, before the result line):
       second launch bit-identical; the lo planes of the operands nonzero;
       at the bulk the kernel's, the plain version's and one complex64
       ``torch.einsum``'s times;
-   b. one warm-up and ten timed steps, counted: as 4b, and 34 environment
+   b. one warm-up and ten timed steps, counted: as 5b, and 34 environment
       transfers per step through the kernel (374), one "high" matvec
       launch per Krylov call;
    c. one more step under ``torch.profiler``.
@@ -65,8 +80,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -79,6 +96,16 @@ LANCZOS_TOL = 5.0e-06  # ‖Δψ‖, tests/test_pallas_lanczos.py
 BOND = 30
 DT_FS = 0.2
 TIMED_STEPS = 5
+SIM_STEPS = 1 + TIMED_STEPS  # the Simulator run: phase 3's steps, warm-up included
+BARE_STEPS = 3
+KRYLOV_TOL = 0.05  # mean Krylov dimension, Simulator run against phase 3
+# fused site kernel vs its plain version, the dead columns of Q (the MGS
+# completions, which carry none of the state): each is e_k orthogonalised
+# against every column before it and inherits their rounding; at the
+# exciton site they read 1e-6 to 5.7e-6 (the live ones 1.2e-7 at most,
+# weighted by their share), a wrong completion O(0.1)
+DEAD_COLUMN_TOL = 1.0e-04
+GAUGE_TOL = 1.0e-05  # max |QᴴQ − I|, the engine's complex64 gauge check
 BULK_SITE = 30
 EXCITON_SITE = 61  # n_left of singlet_fission_chain()
 # bench_chi.py's defaults (its lines 100-189) and its gold populations
@@ -203,7 +230,8 @@ def build_engine(device):
         v[1 if i == EXCITON_SITE else 0] = 1.0
         vecs.append(v)
     cores = [alloc_hartree_product(phys, BOND, vecs)]
-    config = Config(thresh_exp=1.0e-06, max_krylov=10, dtype="complex64")
+    config = Config(thresh_exp=1.0e-06, max_krylov=10, dtype="complex64",
+                    fused_site=False)
     return TDVPEngine(cores, ham, config, device)
 
 
@@ -371,10 +399,12 @@ def counters() -> dict:
     from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_qr as CQ
     from pytdscf_torch.mps import cuda_renorm as CR
+    from pytdscf_torch.mps import cuda_site as CS
 
     return {"lanczos_expm": CL.lanczos_expm, "mgs_qr": CQ.mgs_qr,
             "heff_lo": CM.heff_lo, "keff_lo": CM.keff_lo,
-            "renorm_hi": CR.renorm_hi, "matvec_hi": CR.matvec_hi}
+            "renorm_hi": CR.renorm_hi, "matvec_hi": CR.matvec_hi,
+            "site_step": CS.site_step_fused}
 
 
 def reset_counts() -> None:
@@ -388,14 +418,17 @@ def plain_calls() -> int:
     return sum(c.plain_calls for c in counters().values())
 
 
-def phase_chain(times) -> dict:
-    """The 184-site singlet-fission chain (PR 1's main path)."""
+def phase_chain(times) -> tuple[dict, float, object]:
+    """The 184-site singlet-fission chain (PR 1's main path).  Returns the
+    kernels' (launches, max |Δ|), the mean Krylov dimension over all its
+    steps (warm-up included) and the engine."""
     import torch
 
     from pytdscf_torch import units
     from pytdscf_torch.mps import cuda_lanczos as CL
     from pytdscf_torch.mps import cuda_qr as CQ
     from pytdscf_torch.mps import cuda_renorm as CR
+    from pytdscf_torch.mps import cuda_site as CS
 
     dt_au = DT_FS / units.au_in_fs
     t0 = time.perf_counter()
@@ -411,7 +444,7 @@ def phase_chain(times) -> dict:
     err_qr = check_qr(times)
 
     # ---- the main path, counted
-    engine.krylov_stats()
+    k_warm, calls_warm, _, _ = engine.krylov_stats()
     reset_counts()
     torch.cuda.synchronize()
     step_s = []
@@ -442,8 +475,232 @@ def phase_chain(times) -> dict:
     require(CR.renorm_hi.launches == CR.matvec_hi.launches == 0,
             "the bf16x3 kernel ran on the float32 chain")
     require(plain_calls() == 0, "main path: a plain version ran on the card")
+    require(CS.site_step_fused.launches == 0, "the fused site kernel ran "
+            "with fused_site off")
     profile_step(engine, dt_au)
-    return {"lanczos_expm": (n_lz, err_lz), "mgs_qr": (n_qr, err_qr)}
+    mean_k = (k_warm * calls_warm + avg_k * calls) / (calls_warm + calls)
+    return ({"lanczos_expm": (n_lz, err_lz), "mgs_qr": (n_qr, err_qr)},
+            mean_k, engine)
+
+
+# ------------------------------------- the chain through Simulator.propagate
+def site_flops(st, nc, M, r, P2) -> float:
+    """Real FLOPs of one fused site update from its Krylov status (8 per
+    complex multiply-add): kH H matvecs nc·(M·r² + M²·r), the
+    renormalisation nc·(M²·r + M·r²), kK K matvecs 2·nc·r³, the MGS×2
+    passes 2·M·r² and the absorb r²·P2."""
+    kh, _, kk, _ = st
+    return 8.0 * (kh * nc * (M * r * r + M * M * r)
+                  + nc * (M * M * r + M * r * r)
+                  + kk * 2 * nc * r ** 3 + 2 * M * r * r + r * r * P2)
+
+
+def gauge_weights(args, kw) -> tuple:
+    """The site tensor Q as forward-form columns, and each column's share
+    |R_kk| / max_j |R_jj| of the plain version's gauge ψ₁ = Q·R: rounding
+    differences of order ε‖ψ₁‖ move a column of Q by ε/share, so a column
+    that carries 1e-2 of the state is fixed only to 1e2 ε."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_lanczos as CL
+    from pytdscf_torch.mps import cuda_qr as CQ
+    from pytdscf_torch.mps import cuda_site as CS
+
+    psi, nxt, L, W, R, scale, thresh, lL, lR = args
+    p, _, Lf, Wf, Rf, _, _ = CS.forward_form(psi, nxt, L, W, R, lL, lR,
+                                             kw["forward"])
+    l, d, r = p.shape
+    psi1, _ = CL.lanczos_expm_plain(
+        *CL.heff_channels(Lf, Wf, Rf), p.reshape(l * d, r), scale, thresh,
+        min(kw["max_dim"], l * d * r), kw["conserve"], fac=torch.exp(lL + lR))
+    diag = CQ.mgs_qr_plain(psi1)[1].diagonal().abs()
+
+    def columns(site):
+        return (site if kw["forward"] else site.permute(2, 1, 0)).reshape(l * d, r)
+
+    return columns, diag / diag.max()
+
+
+def check_site(engine, dt_au, results) -> float:
+    """The fused site kernel against its plain version on the chain's
+    operands: the bulk site and the exciton site, forward (next core p + 1)
+    and backward (p − 1).  ψ_next, the blocks and the log-scale are held to
+    5e-6 absolute; the site tensor Q column by column: a live column's
+    error weighted by its share of the state (``gauge_weights``) to 5e-6,
+    a dead one's to DEAD_COLUMN_TOL, and Q orthonormal to GAUGE_TOL.  At
+    the bulk, forward, the kernel, its plain version and the same update
+    through the separate kernels are timed."""
+    import torch
+
+    from pytdscf_torch.config import Config
+    from pytdscf_torch.mps import cuda_site as CS
+    from pytdscf_torch.mps.tdvp import _site_step
+
+    cfg = Config(thresh_exp=1.0e-06, dtype="complex64")  # Simulator's
+    worst = 0.0
+    for p in (BULK_SITE, EXCITON_SITE):
+        (L, lL), W, (R, lR), _ = site_operands(engine, p)
+        psi = engine.cores[0][p].contiguous()
+        for forward in (True, False):
+            nxt = engine.cores[0][p + 1 if forward else p - 1].contiguous()
+            args = (psi, nxt, L, W, R, -0.5j * dt_au, cfg.thresh_exp, lL, lR)
+            kw = dict(forward=forward, max_dim=cfg.max_krylov,
+                      conserve=cfg.conserve_norm)
+            got = CS.site_step_fused(*args, **kw)
+            again = CS.site_step_fused(*args, **kw)
+            want = CS.site_step_fused_plain(*args, **kw)
+            torch.cuda.synchronize()
+            where = f"site_step site {p} {'forward' if forward else 'backward'}"
+            st, st_p = got[4].tolist(), want[4].tolist()
+            require(all(bool(torch.isfinite(t).all()) for t in got[:3]),
+                    f"{where}: not finite")
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"{where}: a second launch gave another result")
+            require(st == st_p, f"{where}: status {st} vs plain {st_p}")
+            errs = [float(torch.max(torch.abs(a - b)))
+                    for a, b in zip(got[:3], want[:3])]
+            dlog = abs(float(got[3]) - float(want[3]))
+            columns, share = gauge_weights(args, kw)
+            q = columns(got[0])
+            dq = torch.abs(q - columns(want[0])).amax(0)
+            werr = float(torch.max(dq * share))
+            dead = share == 0
+            dead_err = float(dq[dead].max()) if bool(dead.any()) else 0.0
+            eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
+            orth = float(torch.max(torch.abs(q.mH @ q - eye)))
+            require(max(werr, *errs[1:], dlog) < LANCZOS_TOL
+                    and dead_err < DEAD_COLUMN_TOL and orth < GAUGE_TOL,
+                    f"{where}: max|Δ| site (weighted) {werr:.3e}, dead "
+                    f"columns {dead_err:.3e}, |QᴴQ−I| {orth:.3e}, next, "
+                    f"blocks {errs[1:]}, |Δlog| {dlog:.3e}")
+            line = (f"{where}: psi {tuple(psi.shape)} W {tuple(W.shape)} "
+                    f"status {st}; max|Δ| site {errs[0]:.3e} (live columns "
+                    f"weighted {werr:.3e}, {int(dead.sum())} dead columns "
+                    f"{dead_err:.3e}; |QᴴQ−I| {orth:.3e}) next {errs[1]:.3e} "
+                    f"blocks {errs[2]:.3e}, |Δlog| {dlog:.3e}; repeat "
+                    "bit-identical")
+            if p == BULK_SITE and forward:
+                ms = cuda_ms(lambda: CS.site_step_fused(*args, **kw), 20)
+                plain_ms = cuda_ms(lambda: CS.site_step_fused_plain(*args, **kw), 3)
+                sep = dict(cfg=cfg.replace(fused_site=False), forward=True,
+                           last=False)
+                sep_ms = cuda_ms(lambda: _site_step(
+                    psi, nxt, L, W, R, -0.5j * dt_au, lL, lR, **sep), 20)
+                l, d, r = psi.shape
+                flops = site_flops(st, W.shape[-1], l * d, r, nxt[0].numel())
+                results["site_step"] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    **bound(flops, PEAK_FP32, nbytes(psi, nxt, L, W, R, *got[:4]))}
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"separate kernels {sep_ms:.4f} ms, bound "
+                         f"{results['site_step']['bound_ms']:.4f} ms")
+            log(line)
+            worst = max(worst, *errs, dlog)  # unweighted, as reported
+    return worst
+
+
+def phase_simulator(times, chain_k: float, chain_engine) -> dict:
+    """The 184-site chain through ``Simulator.propagate`` with the fused
+    site kernel on: 1 + 5 steps from the Hartree product, as phase 3."""
+    import torch
+
+    from pytdscf_torch import Model, Simulator, units
+    from pytdscf_torch.models.holstein import singlet_fission_chain
+    from pytdscf_torch.mps import cuda_lanczos as CL
+    from pytdscf_torch.mps import cuda_qr as CQ
+    from pytdscf_torch.mps import cuda_site as CS
+
+    dt_au = DT_FS / units.au_in_fs
+    err = check_site(chain_engine, dt_au, times)
+    t0 = time.perf_counter()
+    basis, ham = singlet_fission_chain()
+    model = Model(basis, ham, bond_dim=BOND)
+    vecs = []
+    for i, b in enumerate(basis):
+        v = np.zeros(b.nprim, dtype=complex)
+        v[1 if i == EXCITON_SITE else 0] = 1.0
+        vecs.append(v)
+    model.init_HartreeProduct = [vecs]
+    log(f"simulator: model of {len(basis)} sites built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cwd, switch = os.getcwd(), os.environ.get("PYTDSCF_PALLAS_WHOLESITE")
+    os.environ["PYTDSCF_PALLAS_WHOLESITE"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim = Simulator("chip_sf", model)
+            energy, wf = sim.propagate(stepsize=DT_FS, maxstep=SIM_STEPS,
+                                       thresh_sil=1.0e-06)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_site, n_lz = CS.site_step_fused.launches, CL.lanczos_expm.launches
+            n_qr, plain = CQ.mgs_qr.launches, plain_calls()
+            rows = {}
+            for name in ("autocorr", "populations"):
+                with open(os.path.join("chip_sf_prop", f"{name}.dat")) as fh:
+                    rows[name] = [ln for ln in fh if not ln.startswith("#")]
+    finally:
+        os.chdir(cwd)
+        if switch is None:
+            os.environ.pop("PYTDSCF_PALLAS_WHOLESITE")
+        else:
+            os.environ["PYTDSCF_PALLAS_WHOLESITE"] = switch
+    engine = wf.engine
+    avg_k, calls, capped, _ = engine.krylov_stats()
+    e_end, norm = wf.expectation(), wf.norm()
+    diag = sim.diagnostics
+    sweep_s = diag.elapsed["sweep"] / SIM_STEPS
+    props_s = diag.elapsed["props"] / SIM_STEPS
+    log(f"simulator: {SIM_STEPS} steps in {wall:.3f} s (set-up included); "
+        f"per step: sweep {sweep_s:.4f} s, properties {props_s:.4f} s, "
+        f"loop {sweep_s + props_s:.4f} s; energy {energy:.10f} (last "
+        f"pre-step), {e_end:.10f} (end; |Δ| {abs(e_end - E_REF):.2e}); norm "
+        f"{norm:.8f}; avg Krylov {avg_k:.3f} over {calls} calls (chain phase "
+        f"{chain_k:.3f}), cap hits {capped}; launches: site_step {n_site}, "
+        f"lanczos {n_lz}, qr {n_qr}; rows: autocorr "
+        f"{len(rows['autocorr'])}, populations {len(rows['populations'])}")
+    log(f"simulator: last rows: autocorr {rows['autocorr'][-1].strip()!r}, "
+        f"populations {rows['populations'][-1].strip()!r}")
+    require(all(bool(torch.isfinite(c).all()) for c in engine.cores[0]),
+            "simulator: cores not finite")
+    for e in (energy, e_end):
+        require(abs(e - E_REF) <= E_TOL, f"simulator: energy {e:.10f} vs "
+                f"{E_REF} (tol {E_TOL})")
+    require(abs(norm - 1.0) <= NORM_TOL, f"simulator: norm {norm:.8f}")
+    require(all(len(v) == SIM_STEPS for v in rows.values()),
+            f"simulator: .dat rows {[len(v) for v in rows.values()]}")
+    per_step = {"site_step": 2 * 180, "lanczos_expm": 14, "mgs_qr": 6}
+    for name, n in (("site_step", n_site), ("lanczos_expm", n_lz),
+                    ("mgs_qr", n_qr)):
+        require(n == SIM_STEPS * per_step[name],
+                f"simulator: {name} launches {n} != {SIM_STEPS} × "
+                f"{per_step[name]}")
+    require(plain == 0, f"simulator: {plain} plain-version calls on the card")
+    require(calls == SIM_STEPS * 2 * (2 * engine.nsite - 1),
+            f"simulator: {calls} Krylov calls")
+    require(abs(avg_k - chain_k) <= KRYLOV_TOL,
+            f"simulator: mean Krylov {avg_k:.3f} vs chain {chain_k:.3f}")
+
+    # ---- the bare fused-site sweep of the same engine
+    reset_counts()
+    step_s = []
+    for _ in range(BARE_STEPS):
+        t0 = time.perf_counter()
+        engine.propagate(dt_au)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    log(f"simulator engine, bare steps: s/step {[round(x, 4) for x in step_s]}"
+        f" (median {float(np.median(step_s)):.4f}); launches: site_step "
+        f"{CS.site_step_fused.launches}, lanczos {CL.lanczos_expm.launches}, "
+        f"qr {CQ.mgs_qr.launches}")
+    require(CS.site_step_fused.launches == BARE_STEPS * per_step["site_step"],
+            "bare steps: site_step launches")
+    profile_step(engine, dt_au)
+    return {"site_step": (n_site, err), "lanczos_expm": (n_lz, None),
+            "mgs_qr": (n_qr, None)}
 
 
 # ------------------------------------------------- χ=1024 radical pair
@@ -557,10 +814,12 @@ def check_matvec(engine, results) -> dict:
         # library-call yardstick, never called by the port) and its FLOPs
         lib_h = lib_k = None
         if p == RP_BULK_SITE:
-            lib_h = (lambda: torch.einsum("kjr,xcr,aijc,bak->bix", psi, R, W,
-                                          L),
+            # (operands bound now: the loop rebinds the names)
+            lib_h = (lambda psi=psi, R=R, W=W, L=L: torch.einsum(
+                         "kjr,xcr,aijc,bak->bix", psi, R, W, L),
                      chain_flops(l, l, r, r, d, d, wl, wr))
-            lib_k = (lambda: torch.einsum("kr,xar,bak->bx", sig, R, L1),
+            lib_k = (lambda sig=sig, R=R, L1=L1: torch.einsum(
+                         "kr,xar,bak->bx", sig, R, L1),
                      chain_flops(r, r, r, r, 1, 1, wr, wr, has_w=False))
         cases.append(("heff_lo", p, CM.heff_operands(L, W, R), psi, lib_h))
         cases.append(("keff_lo", p, CM.keff_operands(L1, R), sig, lib_k))
@@ -831,6 +1090,8 @@ KERNELS = [
      "pytdscf_tpu/mps/pallas_renorm.py:223"),
     ("matvec_hi", "pytdscf_torch/csrc/chain_bf16x3.cu",
      "pytdscf_tpu/mps/pallas_renorm.py:223"),
+    ("site_step", "pytdscf_torch/csrc/site_step.cu",
+     "pytdscf_tpu/mps/pallas_site.py:342"),
 ]
 
 
@@ -845,7 +1106,9 @@ def main() -> int:
     phase_build()
 
     times: dict[str, dict] = {}
-    paths = [phase_chain(times)]
+    chain, chain_k, chain_engine = phase_chain(times)
+    paths = [chain, phase_simulator(times, chain_k, chain_engine)]
+    del chain_engine
     for preset in ("balanced", "throughput"):
         torch.cuda.empty_cache()
         paths.append(phase_radical_pair(times, preset))

@@ -4,8 +4,9 @@
 source, all started together) and links the objects into one shared
 library with a plain C interface, which is loaded with ``ctypes``.  The
 library is built at first use into ``_build/`` beside this file (listed in
-``.gitignore``), named by a hash of the sources, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
+``.gitignore``), named by a hash of the sources and the headers they share
+(``csrc/*.cuh``), so an edited source or header is rebuilt and an unchanged
+tree is loaded as it is.  Nothing here runs at
 import: the CPU-only installation imports this module and never calls it.
 
 Every C entry point launches on the stream it is given and returns
@@ -57,6 +58,13 @@ SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
+    # device, H, Rt, psi, next, logs, site_out, psi_next, blocks, log_new,
+    # status, scratch, nc, M, r, P2, kmaxH, kmaxK, scale_re, scale_im,
+    # thresh, conserve, stream
+    "pytdscf_site_step_c64": [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P,
+    ],
 }
 
 
@@ -70,12 +78,19 @@ def _nvcc() -> str:
     )
 
 
+def source_digest(csrc: Path = CSRC) -> str:
+    """Hash of every kernel source and shared header (``*.cu``, ``*.cuh``)
+    under ``csrc``, names included: the build's name."""
+    files = sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")])
+    return hashlib.sha256(
+        b"".join(p.name.encode() + p.read_bytes() for p in files)
+    ).hexdigest()[:12]
+
+
 def build() -> tuple[Path, str, float]:
     """Compile the kernels if needed: (library path, ptxas log, seconds)."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(
-        b"".join(p.name.encode() + p.read_bytes() for p in sources)
-    ).hexdigest()[:12]
+    digest = source_digest()
     out = BUILD_DIR / f"libpytdscf_kernels-{digest}.so"
     if out.exists():
         return out, "", 0.0

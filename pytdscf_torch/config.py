@@ -8,13 +8,22 @@ ported.  Defaults are the JAX package's, so numerical literals match.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Literal
+
+
+def _fused_site_default() -> bool:
+    """``PYTDSCF_PALLAS_WHOLESITE=1`` selects the fused site update, as it
+    does in the JAX package (read once per ``Config``)."""
+    return os.environ.get("PYTDSCF_PALLAS_WHOLESITE", "0") == "1"
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Run-type configuration, passed explicitly (never a global)."""
 
+    #: Job name; output directory of a Simulator run (``{jobname}/``).
+    jobname: str = "job"
     #: "none" = real-time propagation; "imaginary" = imaginary-time relaxation;
     #: "improved" = improved (diagonalisation) relaxation.  The port runs
     #: "none" only (relaxation is ROADMAP A7).
@@ -59,6 +68,15 @@ class Config:
     #: Sweep-splitting composition; the port runs "lt2" only (suzuki4 and
     #: yoshida4 are ROADMAP A10).
     splitting: Literal["lt2", "suzuki4", "yoshida4"] = "lt2"
+    #: Run each non-last Lanczos site update as ONE call of the fused site
+    #: kernel (``cuda_site.site_step_fused``: H-Krylov, gauge, environment
+    #: renormalisation, K-Krylov, absorb) where ``cuda_site.site_fits``
+    #: takes the shapes and both precisions are "highest"; elsewhere the
+    #: separate kernels run.  Off unless ``PYTDSCF_PALLAS_WHOLESITE=1``, the
+    #: JAX package's switch of the same update.
+    fused_site: bool = dataclasses.field(default_factory=_fused_site_default)
+    #: Time unit of the Simulator's outputs.
+    display_time_unit: Literal["fs", "ps", "au"] = "fs"
     #: Extra numerical self-checks (gauge canonicality inside the sweep).
     pytest_enabled: bool = False
     #: Computation dtype for the tensor network.

@@ -18,72 +18,20 @@
 // device-memory scratch the wrapper passes, with the same layout; it then
 // sits in L2.
 //
+// The factorisation is tdvp_device.cuh's mgs_factor (site_step.cu runs the
+// same one inside its fused site update).
+//
 // Layout: m (N, r) complex64 row-major (torch's contiguous layout, float2
 // interleaved), Q (N, r) row-major, R (r, r) row-major.  N >= r >= 1.
 
 #include <cuda_runtime.h>
 
+#include "tdvp_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr float kRankTol = 1.0e-7f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sum over the block, returned to every thread (all threads add the warp
-// partials in the same order, so the result is identical in every thread).
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int i = 0; i < kWarps; ++i) t += red[i];
-  return t;
-}
-
-// One Gram–Schmidt pass of x (N, shared) against Q[:, :k] (shared,
-// column-major): c[j] = <Q_j|x> for j < k, then x -= sum_j Q_j c[j].
-__device__ void gs_pass(const float2* Q, float2* x, float2* c, int N, int k) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = warp; j < k; j += kWarps) {
-    const float2* q = Q + (size_t)j * N;
-    float re = 0.f, im = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      const float2 a = q[n], b = x[n];
-      re += a.x * b.x + a.y * b.y;  // conj(a) * b
-      im += a.x * b.y - a.y * b.x;
-    }
-    re = warp_sum(re);
-    im = warp_sum(im);
-    if (lane == 0) c[j] = make_float2(re, im);
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float sr = 0.f, si = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float2 a = Q[(size_t)j * N + n], b = c[j];
-      sr += a.x * b.x - a.y * b.y;
-      si += a.x * b.y + a.y * b.x;
-    }
-    const float2 xv = x[n];
-    x[n] = make_float2(xv.x - sr, xv.y - si);
-  }
-  __syncthreads();
-}
-
-__device__ float norm2(const float2* x, int N, float* red) {
-  float s = 0.f;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    const float2 a = x[n];
-    s += a.x * a.x + a.y * a.y;
-  }
-  return block_sum(s, red);
-}
 
 __global__ void __launch_bounds__(kThreads)
 mgs_qr_kernel(const float2* __restrict__ m, float2* __restrict__ q_out,
@@ -97,45 +45,9 @@ mgs_qr_kernel(const float2* __restrict__ m, float2* __restrict__ q_out,
   float2* c2 = c1 + r;         // (r) second-pass coefficients
   float2* c3 = c2 + r;         // (r) coefficients of the completion passes
   __shared__ float red[kWarps];
-  const int tid = threadIdx.x;
 
-  for (int i = tid; i < N * r; i += kThreads) Q[i] = make_float2(0.f, 0.f);
-  for (int i = tid; i < r * r; i += kThreads) r_out[i] = make_float2(0.f, 0.f);
-  float s = 0.f;
-  for (int i = tid; i < N * r; i += kThreads) {
-    const float2 a = m[i];
-    s += a.x * a.x + a.y * a.y;
-  }
-  const float scale = sqrtf(block_sum(s, red)) + 1e-30f;
-
-  for (int k = 0; k < r; ++k) {
-    for (int n = tid; n < N; n += kThreads) v[n] = m[(size_t)n * r + k];
-    __syncthreads();
-    gs_pass(Q, v, c1, N, k);
-    gs_pass(Q, v, c2, N, k);
-    const float nv = sqrtf(norm2(v, N, red));
-    const bool bad = nv < kRankTol * scale;  // uniform across the block
-    float2* col = Q + (size_t)k * N;
-    if (bad) {
-      for (int n = tid; n < N; n += kThreads)
-        e[n] = make_float2(n == k % N ? 1.f : 0.f, 0.f);
-      __syncthreads();
-      gs_pass(Q, e, c3, N, k);
-      gs_pass(Q, e, c3, N, k);
-      const float ne = sqrtf(norm2(e, N, red)) + 1e-30f;
-      for (int n = tid; n < N; n += kThreads)
-        col[n] = make_float2(e[n].x / ne, e[n].y / ne);
-    } else {
-      for (int n = tid; n < N; n += kThreads)
-        col[n] = make_float2(v[n].x / nv, v[n].y / nv);
-    }
-    for (int j = tid; j < k; j += kThreads)
-      r_out[(size_t)j * r + k] =
-          make_float2(c1[j].x + c2[j].x, c1[j].y + c2[j].y);
-    if (tid == 0) r_out[(size_t)k * r + k] = make_float2(bad ? 0.f : nv, 0.f);
-    __syncthreads();
-  }
-  for (int i = tid; i < N * r; i += kThreads) {
+  mgs_factor<kThreads>(m, Q, r_out, N, r, v, e, c1, c2, c3, red);
+  for (int i = threadIdx.x; i < N * r; i += kThreads) {
     const int n = i / r, j = i - n * r;
     q_out[i] = Q[(size_t)j * N + n];
   }

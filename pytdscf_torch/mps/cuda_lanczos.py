@@ -105,11 +105,14 @@ def _matvec(H, Rt, x):
 
 
 def lanczos_expm_plain(H, Rt, v, scale: complex, thresh: float, kmax: int,
-                       conserve: bool):
+                       conserve: bool, fac=None):
     """Plain PyTorch version of the kernel, any complex dtype and device.
 
     Returns ``(ψ (M, r), status)`` with ``status = [k_used, bad]`` (int32).
-    The loop control reads α, β and the error on the host.
+    ``fac`` (a real scalar tensor, or None for 1) scales each matvec's
+    output, as the fused site kernel applies the env factor
+    (``cuda_site``); ``lanczos_expm`` folds it into H instead.  The loop
+    control reads α, β and the error on the host.
     """
     M, r = v.shape
     n = M * r
@@ -123,6 +126,8 @@ def lanczos_expm_plain(H, Rt, v, scale: complex, thresh: float, kmax: int,
     k_fin, bad = 0, False
     for k in range(kmax):
         w = _matvec(H, Rt, V[k])
+        if fac is not None:
+            w = w * fac
         a = torch.sum(V[0].conj() * w)
         w = w - a * V[k]
         if k > 0:

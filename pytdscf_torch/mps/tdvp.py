@@ -15,9 +15,11 @@ each site:
 
 Two Krylov routes.  Lanczos (Hermitian H_eff, the small-bond chains): the
 whole exponential is one ``cuda_lanczos.lanczos_expm`` call, the kernel on
-CUDA.  Arnoldi (any H_eff, the Liouville MPDO): ``integrator.krylov_expm``
-drives the exact float32 einsum matvecs (or, at ``matvec_precision="high"``,
-the bf16x3 ``cuda_renorm.heff_hi``/``keff_hi`` kernel) and, with
+CUDA; with ``Config.fused_site`` the five steps of a non-last site are one
+``cuda_site.site_step_fused`` call where its shapes fit.  Arnoldi (any
+H_eff, the Liouville MPDO): ``integrator.krylov_expm`` drives the exact
+float32 einsum matvecs (or, at ``matvec_precision="high"``, the bf16x3
+``cuda_renorm.heff_hi``/``keff_hi`` kernel) and, with
 ``krylov_relaxed``, the single-bf16-pass ``cuda_matvec`` kernels for
 iterations ``>= relax_after``.  At ``env_precision="high"`` the in-sweep
 environment transfers run the same bf16x3 kernel
@@ -39,6 +41,7 @@ import torch
 
 from pytdscf_torch.config import Config
 from pytdscf_torch.mps import cuda_renorm as CR
+from pytdscf_torch.mps import cuda_site as CS
 from pytdscf_torch.mps import kernels as K
 from pytdscf_torch.mps.cuda_lanczos import (
     heff_channels,
@@ -106,6 +109,19 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
     l, d, r = psi.shape
     conserve = cfg.conserve_norm
     arnoldi = cfg.integrator == "arnoldi"
+    if (
+        cfg.fused_site
+        and not last
+        and not arnoldi
+        and cfg.matvec_precision == cfg.env_precision == "highest"
+        and CS.site_fits(psi.shape, W.shape, nxt.shape, cfg.max_krylov)
+    ):
+        # the whole update as one call of the fused site kernel
+        site_out, psi_next, block, log_new, st = CS.site_step_fused(
+            psi, nxt, L, W, R, scale, cfg.thresh_exp, lL, lR,
+            forward=forward, max_dim=cfg.max_krylov, conserve=conserve,
+        )
+        return site_out, psi_next, (block, log_new), [st[:2], st[2:]], 0
     hfac = torch.exp(lL + lR)
     relaxed = 0
     if arnoldi:
@@ -200,13 +216,12 @@ class TDVPEngine:
         self.nsite = len(cores[0])
         self.cores = [[self._put(c) for c in state] for state in cores]
         self.phys_dims = [int(c.shape[1]) for c in cores[0]]
-        fused = hamiltonian.fused_mpo(self.phys_dims)
-        if len(fused) != 1 or fused[0][0] is None:
-            raise NotImplementedError(
-                "multi-state Hamiltonians are not ported yet (ROADMAP A3)"
-            )
+        self.hamiltonian = hamiltonian
         #: fused MPO cores W[p] (a, i, j, b) of the single state pair
-        self.W = [self._put(c) for c in fused[0][0]]
+        self.W = self._fused_cores(hamiltonian)
+        #: fused MPOs of other operators (``expectation``), by id, with the
+        #: operator kept alive beside them
+        self._op_W: dict[int, tuple] = {}
         #: env stack of (block, log-scale): blocks accumulated by the
         #: previous half-sweep; popping yields the next site's environment
         self.env_stack: list | None = None
@@ -223,6 +238,15 @@ class TDVPEngine:
     # ---------------------------------------------------------- helpers
     def _put(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device, self.dtype)
+
+    def _fused_cores(self, operator) -> list[torch.Tensor]:
+        """The single-pair fused MPO of ``operator`` on this device."""
+        fused = operator.fused_mpo(self.phys_dims)
+        if len(fused) != 1 or fused[0][0] is None:
+            raise NotImplementedError(
+                "multi-state operators are not ported yet (ROADMAP A3)"
+            )
+        return [self._put(c) for c in fused[0][0]]
 
     def _trivial(self):
         real = torch.float64 if self.dtype == torch.complex128 else torch.float32
@@ -320,22 +344,77 @@ class TDVPEngine:
                 )
 
     # ------------------------------------------------------- observables
-    def expectation(self) -> complex:
-        """⟨Ψ|H|Ψ⟩ with Psi canonical at site 0."""
+    def expectation(self, operator=None) -> complex:
+        """⟨Ψ|O|Ψ⟩ with Psi canonical at site 0: O is the engine's
+        Hamiltonian (``None``) or any operator with ``fused_mpo`` (an
+        observable), whose fused MPO is built once and cached."""
+        if operator is None or operator is self.hamiltonian:
+            W = self.W
+        else:
+            if id(operator) not in self._op_W:
+                self._op_W[id(operator)] = (operator,
+                                            self._fused_cores(operator))
+            W = self._op_W[id(operator)][1]
         block, log = self._trivial()
         for p in range(self.nsite - 1, 0, -1):
             c = self.cores[0][p]
             block, dl = _normalize_block(
-                K.renorm_block_right(block, c, self.W[p], c)
+                K.renorm_block_right(block, c, W[p], c)
             )
             log = log + dl
         triv, _ = self._trivial()
         psi = self.cores[0][0]
-        sig = K.heff_apply(triv, self.W[0], block, psi)
+        sig = K.heff_apply(triv, W[0], block, psi)
         return complex(torch.sum(psi.conj() * sig) * torch.exp(log))
 
     def pop_states(self) -> list[float]:
         return [float(torch.sum(torch.abs(self.cores[0][0]) ** 2))]
+
+    def bond_dims(self, istate: int = 0) -> list[int]:
+        return [int(c.shape[2]) for c in self.cores[istate][:-1]]
+
+    def reduced_density(
+        self, remain_nleg: tuple[int, ...], istate: int = 0
+    ) -> np.ndarray:
+        """ρ over kept sites; Tr over the rest.  Psi must sit at site 0.
+
+        ``remain_nleg[p]`` ∈ {0,1,2}: 0 trace out, 1 keep diagonal,
+        2 keep bra+ket.  Sites right of ``len(remain_nleg)−1`` are
+        right-orthogonal ⇒ identity environment (reference
+        ``_mps_cls.py:1208-1287``).  Output legs ordered site-major,
+        ket before bra.
+        """
+        if self.config.space == "liouville":
+            return self.reduced_density_liouville(remain_nleg)
+        cores = [self.cores[istate][p] for p in range(len(remain_nleg))]
+        core = cores.pop()
+        nleg = remain_nleg[-1]
+        if nleg == 1:
+            dens = torch.einsum("ijk,ajk->iaj", core, core.conj())
+        elif nleg == 2:
+            dens = torch.einsum("ijk,alk->iajl", core, core.conj())
+        else:
+            raise ValueError("right-most kept site must have ≥1 open leg")
+        p = len(remain_nleg) - 1
+        while cores:
+            p -= 1
+            core = cores.pop()
+            nleg = remain_nleg[p]
+            if nleg == 2:
+                sub = "lmi,bna,ia...->lbmn..."
+            elif nleg == 1:
+                sub = "lmi,bma,ia...->lbm..."
+            else:
+                sub = "lmi,bma,ia...->lb..."
+            dens = torch.einsum(sub, core, core.conj(), dens)
+        return dens[0, 0, ...].cpu().numpy()
+
+    def overlap_conj(self, other_cores) -> complex:
+        """⟨self|other⟩ (the explicit autocorrelation ⟨Ψ(0)|Ψ(t)⟩)."""
+        S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
+        for a, b in zip(self.cores[0], other_cores[0]):
+            S = K.ovlp_left_conj(S, a, b)
+        return complex(S[0, 0])
 
     def norm(self) -> float:
         if self.config.space == "liouville":
@@ -412,10 +491,8 @@ class TDVPEngine:
         """‖Ψ−Φ‖ via overlaps (reference ``distance_MPS``)."""
         n1 = sum(self.pop_states())
         n2 = sum(other.pop_states())
-        S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
-        for a, b in zip(self.cores[0], other.cores[0]):
-            S = K.ovlp_left_conj(S, a, b.to(self.device, self.dtype))
-        ov = complex(S[0, 0])
+        ov = self.overlap_conj(
+            [[c.to(self.device, self.dtype) for c in other.cores[0]]])
         return math.sqrt(max(n1 + n2 - 2.0 * ov.real, 0.0))
 
     def krylov_stats(self, reset: bool = True) -> tuple[float, int, int, int]:

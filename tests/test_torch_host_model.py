@@ -5,10 +5,18 @@ models (basis, operators, models, lattice, model), because it must import
 without JAX; the Liouville copies are held to theirs in
 ``tests/test_torch_liouville.py``.  These tests hold the copies to the originals, and
 check that the port really loads neither JAX nor ``pytdscf_tpu``.
+
+The Simulator's host modules (``_logging``, ``diagnostics``, ``util/nc4``,
+``properties``, ``simulator``) are held to theirs line for line: each
+copied function has the original's lines (package name aside), apart from
+the documented cuts (lines dropped) and the lines listed here as added.
+Their behaviour is held to the JAX package's in
+``tests/test_torch_simulator.py``.
 """
 
 from __future__ import annotations
 
+import ast
 import os
 import subprocess
 import sys
@@ -112,10 +120,104 @@ def test_port_sources_name_no_jax():
     pkg = os.path.join(REPO, "pytdscf_torch")
     for root, _, files in os.walk(pkg):
         for name in files:
-            if not name.endswith((".py", ".cu")):
+            if not name.endswith((".py", ".cu", ".cuh")):
                 continue
             with open(os.path.join(root, name), encoding="utf-8") as fh:
                 text = fh.read()
             assert "import jax" not in text, name
             assert "from jax" not in text, name
             assert "pytdscf_tpu" not in text, name
+
+
+# ------------------------------------------------ the Simulator's host modules
+def _defs(path: str) -> dict[str, list[str]]:
+    """Top-level functions and methods of a module: qualified name →
+    stripped, non-blank source lines, with the package name normalised."""
+    with open(os.path.join(REPO, path), encoding="utf-8") as fh:
+        text = fh.read().replace("pytdscf_tpu", "pytdscf_torch")
+    lines = text.splitlines()
+    out = {}
+    for node in ast.parse(text).body:
+        members = [(getattr(node, "name", ""), node)]
+        if isinstance(node, ast.ClassDef):
+            members = [(f"{node.name}.{m.name}", m) for m in node.body
+                       if isinstance(m, ast.FunctionDef)]
+        for name, fn in members:
+            if isinstance(fn, ast.FunctionDef):
+                body = lines[fn.lineno - 1 - len(fn.decorator_list):fn.end_lineno]
+                out[name] = [ln.strip() for ln in body if ln.strip()]
+    return out
+
+
+#: (JAX module, port module, {function: lines the port adds}); a function
+#: absent from the table is a verbatim copy, and every other line of the
+#: port's function must be one of the original's (what it drops is a cut:
+#: the deferred fetch and fused driver of A8, the adaptive bond file of A9,
+#: the device_io transfers, the TPU venue advisory)
+COPIES = [
+    ("pytdscf_tpu/diagnostics.py", "pytdscf_torch/diagnostics.py", {}),
+    ("pytdscf_tpu/_logging.py", "pytdscf_torch/_logging.py", {
+        "_process_index": [
+            '"""Multi-host process index (the reference\'s MPI rank analogue): the',
+            'port runs one process (the multi-device engines are ROADMAP A13)."""',
+        ],
+        "get_logger": ["for a multi-process runtime.\"\"\""],
+    }),
+    ("pytdscf_tpu/util/nc4.py", "pytdscf_torch/util/nc4.py", {
+        "NC4Writer.__init__": [
+            "global h5py",
+            "import h5py  # here, not with the module: h5py may be missing",
+        ],
+    }),
+    ("pytdscf_tpu/properties.py", "pytdscf_torch/properties.py", {
+        "Properties.__init__": [
+            "[engine._put(c) for c in state] for state in initial_cores"],
+        "Properties.get_properties": [],
+        "Properties.export_properties": [],
+        "Properties._write_rows": [],
+        "Properties.close": [],
+        "Properties.flush": [
+            '"""Nothing is deferred in the port (the packed fetch is ROADMAP',
+            'A8): each step\'s rows are already written."""',
+        ],
+    }),
+    ("pytdscf_tpu/simulator.py", "pytdscf_torch/simulator.py", {
+        "Simulator._step_inline": [
+            "properties → export → backup → propagate → update).\"\"\"",
+            "engine.propagate(dt_au)",
+            'if engine.device.type == "cuda":',
+            "torch.cuda.synchronize(engine.device)",
+            "props.update(dt_au)",
+            "kry, calls, _, _ = engine.krylov_stats(reset=False)",
+            'f"[{config.display_time_unit}]  | {diag.report()}"',
+            'f"  AVG Krylov = {kry:.2f}"',
+        ],
+        "Simulator._save": [],
+        "Simulator._alloc_initial_cores": [],
+    }),
+]
+
+#: functions rewritten rather than copied (their behaviour is tested in
+#: tests/test_torch_simulator.py): the refusals naming ROADMAP items, the
+#: device argument, the per-step loop without the fused block driver
+REWRITTEN = {
+    "Simulator.__init__", "Simulator.propagate", "Simulator.relax",
+    "Simulator.operate", "Simulator._auto_dtype", "Simulator._initial_engine",
+    "Simulator._prepare_primints", "Simulator._execute",
+}
+
+
+@pytest.mark.parametrize("jax_path,port_path,added", COPIES,
+                         ids=[c[1].split("/")[-1] for c in COPIES])
+def test_host_copies_line_for_line(jax_path, port_path, added):
+    ref, port = _defs(jax_path), _defs(port_path)
+    assert port, port_path
+    for name, lines in port.items():
+        if name in REWRITTEN or name.startswith("_not_ported"):
+            continue
+        assert name in ref, f"{port_path}: {name} has no original"
+        if name not in added:
+            assert lines == ref[name], f"{port_path}: {name} is not a copy"
+            continue
+        new = [ln for ln in lines if ln not in ref[name]]
+        assert sorted(new) == sorted(added[name]), (name, new)

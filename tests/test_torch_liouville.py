@@ -31,6 +31,7 @@ are exact on the CPU, so that gap is the bf16x3 error (measured 2.6e-6 on
 from __future__ import annotations
 
 import dataclasses
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -152,8 +153,12 @@ def test_precision_presets_match_jax(preset):
 
     port = Config().with_precision_preset(preset)
     jax_cfg = JConfig().with_precision_preset(preset)
+    # the JAX package selects the fused site by its environment switch
+    jax_switch = os.environ.get("PYTDSCF_PALLAS_WHOLESITE", "0") == "1"
     for field in dataclasses.fields(port):
-        assert getattr(port, field.name) == getattr(jax_cfg, field.name), field.name
+        want = (jax_switch if field.name == "fused_site"
+                else getattr(jax_cfg, field.name))
+        assert getattr(port, field.name) == want, field.name
     # a preset sets both precisions, whatever the rung before it was
     again = port.with_precision_preset("throughput").with_precision_preset(preset)
     assert (again.matvec_precision, again.env_precision) == (
