@@ -45,11 +45,13 @@ Phases (any failure exits nonzero, before the result line):
       must fail; a second launch bit-identical; kernel and plain times at
       the bulk); the MGS QR against its plain version on the chain's own
       gauge operands at every shape it takes there, (1024, 64) down to
-      (4, 4);
+      (4, 4), the (1024, 64) one through the cluster route (timed beside
+      ``torch.linalg.qr``), a second launch bit-identical;
    b. one warm-up and ten timed steps, counted: bench_chi.py's invariants,
       the electron populations within 6e-5 of its gold entry
       (``bench_expected.json``), heff_lo + keff_lo launches equal to the
-      relaxed matvecs ``krylov_stats`` counts, no plain-version call;
+      relaxed matvecs ``krylov_stats`` counts, every (1024, 64) gauge move
+      through the MGS cluster kernel, no plain-version call;
    c. one more step under ``torch.profiler``;
 6. the same radical pair at ``bench_chi.py``'s own default rung,
    "throughput" (its ``BENCH_PENV=1`` semantics): bf16x3 iteration-0
@@ -72,8 +74,9 @@ The second-to-last line of stdout is a JSON object with each kernel's
 launches, error, times and bound (the least time the card could take for
 the timed call's work: its operations at the card's peak for their type or
 its bytes at the memory rate, whichever is larger; H100 SXM data sheet
-peaks at 700 W); the last line is the result ``{"ok": true, "device":
-{...}}``.  The script imports no JAX.
+peaks at 700 W); the MGS entry carries its two timed shapes as ``cases``,
+each with its route and its launches on the main paths.  The last line is
+the result ``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
 
 from __future__ import annotations
@@ -308,9 +311,13 @@ def check_mgs(name: str, m, timed: bool = False):
     from pytdscf_torch.mps import cuda_qr as CQ
 
     q, rm = CQ.mgs_qr(m)
+    q2, r2 = CQ.mgs_qr(m)
     q_p, r_p = CQ.mgs_qr_plain(m)
     torch.cuda.synchronize()
     n, r = m.shape
+    way = CQ.route(n, r)
+    require(torch.equal(q, q2) and torch.equal(rm, r2),
+            f"mgs_qr {name}: a second launch gave another result")
     eye = torch.eye(r, dtype=m.dtype, device=m.device)
     mnorm = float(torch.linalg.vector_norm(m))
     orth = float(torch.linalg.matrix_norm(eye - q.conj().T @ q))
@@ -323,18 +330,21 @@ def check_mgs(name: str, m, timed: bool = False):
     require(dr < 5e-6 * r * mnorm + 1e-6, f"mgs_qr {name}: ‖ΔR‖ {dr:.3e}")
     err = max(float(torch.max(torch.abs(q - q_p))),
               float(torch.max(torch.abs(rm - r_p))))
-    line = (f"mgs_qr {name} ({n}, {r}): orth {orth:.3e} rec {rec:.3e} "
-            f"‖ΔQ‖ {dq:.3e} ‖ΔR‖ {dr:.3e} max|Δ| {err:.3e}")
+    line = (f"mgs_qr {name} ({n}, {r}), {way} route: orth {orth:.3e} rec "
+            f"{rec:.3e} ‖ΔQ‖ {dq:.3e} ‖ΔR‖ {dr:.3e} max|Δ| {err:.3e}; repeat "
+            "bit-identical")
     times = None
     if timed:
-        times = {"ms": cuda_ms(lambda: CQ.mgs_qr(m), 200),
+        times = {"shape": [n, r], "route": way,
+                 "ms": cuda_ms(lambda: CQ.mgs_qr(m), 200),
                  "plain_ms": cuda_ms(lambda: CQ.mgs_qr_plain(m), 10),
                  "library_ms": cuda_ms(lambda: torch.linalg.qr(m), 50),
                  # MGS×2: two passes of N·r² complex multiply-adds
                  **bound(8.0 * 2 * n * r * r, PEAK_FP32, nbytes(m, q, rm))}
-        line += (f" kernel {times['ms']:.4f} ms, plain "
+        line += (f"; kernel {times['ms']:.4f} ms, plain "
                  f"{times['plain_ms']:.4f} ms, torch.linalg.qr "
-                 f"{times['library_ms']:.4f} ms")
+                 f"{times['library_ms']:.4f} ms, bound "
+                 f"{times['bound_ms']:.2e} ms")
     log(line)
     return err, rm, times
 
@@ -356,7 +366,8 @@ def check_qr(results):
                 require(abs(complex(rm[k, k])) < 1e-6,
                         f"mgs_qr: dead column {k} has a nonzero R diagonal")
         worst = max(worst, err)
-        results.setdefault("mgs_qr", times)
+        if "mgs_qr" not in results:  # the full-rank factor, timed
+            results["mgs_qr"] = {**times, "cases": [times]}
     return worst
 
 
@@ -409,9 +420,12 @@ def counters() -> dict:
 
 def reset_counts() -> None:
     """Zero every kernel wrapper's launch and plain-call counts."""
+    from pytdscf_torch.mps import cuda_qr as CQ
+
     for c in counters().values():
         c.launches = 0
         c.plain_calls = 0
+    CQ.mgs_qr.route_launches = dict.fromkeys(CQ.ROUTES, 0)
 
 
 def plain_calls() -> int:
@@ -477,10 +491,13 @@ def phase_chain(times) -> tuple[dict, float, object]:
     require(plain_calls() == 0, "main path: a plain version ran on the card")
     require(CS.site_step_fused.launches == 0, "the fused site kernel ran "
             "with fused_site off")
+    routes = dict(CQ.mgs_qr.route_launches)
+    require(routes["block"] == n_qr, f"qr launches by route {routes}: the "
+            "chain's shapes take the one-block route")
     profile_step(engine, dt_au)
     mean_k = (k_warm * calls_warm + avg_k * calls) / (calls_warm + calls)
-    return ({"lanczos_expm": (n_lz, err_lz), "mgs_qr": (n_qr, err_qr)},
-            mean_k, engine)
+    return ({"lanczos_expm": (n_lz, err_lz), "mgs_qr": (n_qr, err_qr),
+             "mgs_qr_routes": routes}, mean_k, engine)
 
 
 # ------------------------------------- the chain through Simulator.propagate
@@ -638,6 +655,7 @@ def phase_simulator(times, chain_k: float, chain_engine) -> dict:
             wall = time.perf_counter() - t0
             n_site, n_lz = CS.site_step_fused.launches, CL.lanczos_expm.launches
             n_qr, plain = CQ.mgs_qr.launches, plain_calls()
+            routes = dict(CQ.mgs_qr.route_launches)
             rows = {}
             for name in ("autocorr", "populations"):
                 with open(os.path.join("chip_sf_prop", f"{name}.dat")) as fh:
@@ -699,8 +717,10 @@ def phase_simulator(times, chain_k: float, chain_engine) -> dict:
     require(CS.site_step_fused.launches == BARE_STEPS * per_step["site_step"],
             "bare steps: site_step launches")
     profile_step(engine, dt_au)
+    require(routes["block"] == n_qr, f"simulator: qr launches by route "
+            f"{routes}")
     return {"site_step": (n_site, err), "lanczos_expm": (n_lz, None),
-            "mgs_qr": (n_qr, None)}
+            "mgs_qr": (n_qr, None), "mgs_qr_routes": routes}
 
 
 # ------------------------------------------------- χ=1024 radical pair
@@ -766,13 +786,14 @@ def mgs_moves(engine) -> list[tuple[int, str, tuple[int, int]]]:
             if not (k >= CHOLESKY_QR_MIN_R and n >= k)]
 
 
-def check_qr_gauge(engine) -> float:
+def check_qr_gauge(engine, results) -> float:
     """The MGS kernel against its plain version on the radical pair's own
     gauge operands after ``right_canonicalize``, at every shape the kernel
     takes on this chain: the backward half-sweep's LQ operand (r·d, l) of
     the first site of each shape (a right-orthogonal core: orthonormal
     columns), and the forward QR operand (l·d, r) of a right-orthogonal
-    site at the largest shape, whose Q sits in device memory (timed)."""
+    site at the largest shape, (1024, 64), which takes the cluster route
+    (timed: a second case of the ``mgs_qr`` entry)."""
     moves = mgs_moves(engine)
     big = max((shape for _, _, shape in moves), key=lambda s: s[0] * s[1])
     picks: dict[tuple[str, tuple[int, int]], int] = {}
@@ -785,8 +806,11 @@ def check_qr_gauge(engine) -> float:
         l, d, r = psi.shape
         m = (psi.reshape(l * d, r) if kind == "QR"
              else psi.permute(2, 1, 0).reshape(r * d, l)).contiguous()
-        err, _, _ = check_mgs(f"{kind} operand of site {p}", m,
-                              timed=shape == big and kind == "QR")
+        timed = shape == big and kind == "QR"
+        err, _, times = check_mgs(f"{kind} operand of site {p}", m, timed)
+        if timed and not any(c["shape"] == times["shape"]
+                             for c in results["mgs_qr"]["cases"]):
+            results["mgs_qr"]["cases"].append(times)
         worst = max(worst, err)
     return worst
 
@@ -828,7 +852,7 @@ def check_matvec(engine, results) -> dict:
     for name, p, ops, v, timed in cases:
         kernel = getattr(CM, name)
         plain = K.heff_apply_lo if name == "heff_lo" else K.keff_apply_lo
-        planes = [t.unbind(-1) for t in ops]
+        planes = CM.plain_planes(ops)
         got = kernel(ops, v)
         again = kernel(ops, v)
         want = plain(*planes, v)
@@ -856,11 +880,13 @@ def check_matvec(engine, results) -> dict:
             plain_ms = cuda_ms(lambda: plain(*planes, v), 5)
             lib, flops = timed
             lib_ms = cuda_ms(lib, 5)
+            moved = nbytes(v, *(t for pair in planes for t in pair), got)
             results[name] = {"ms": ms, "plain_ms": plain_ms,
                              "library_ms": lib_ms,
-                             **bound(flops, PEAK_BF16, nbytes(v, *ops, got))}
+                             **bound(flops, PEAK_BF16, moved)}
             line += (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                     f"torch.einsum {lib_ms:.4f} ms")
+                     f"torch.einsum {lib_ms:.4f} ms, bound "
+                     f"{results[name]['bound_ms']:.4f} ms")
         log(line)
         worst[name] = max(worst.get(name, 0.0), err)
     return worst
@@ -994,7 +1020,7 @@ def phase_radical_pair(times, preset: str) -> dict:
         err = check_chain3(engine, times)
     else:
         err = check_matvec(engine, times)
-        err["mgs_qr"] = check_qr_gauge(engine)
+        err["mgs_qr"] = check_qr_gauge(engine, times)
     torch.cuda.empty_cache()
 
     # ---- the main path, counted: 1 warm-up + RP_STEPS timed steps
@@ -1015,6 +1041,7 @@ def phase_radical_pair(times, preset: str) -> dict:
     n_h, n_k = CM.heff_lo.launches, CM.keff_lo.launches
     n_qr, n_lz = CQ.mgs_qr.launches, CL.lanczos_expm.launches
     n_r, n_m = CR.renorm_hi.launches, CR.matvec_hi.launches
+    routes = dict(CQ.mgs_qr.route_launches)
     plain = plain_calls()
     avg_k, calls, capped, relaxed = engine.krylov_stats()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1030,7 +1057,8 @@ def phase_radical_pair(times, preset: str) -> dict:
         f"{[round(s, 4) for s in step_s]} (median {median:.4f}); "
         f"~{tflops:.1f} algorithmic TFLOP/s; avg Krylov {avg_k:.3f} over "
         f"{calls} calls, cap hits {capped}; relaxed matvecs {relaxed}; "
-        f"launches: heff_lo {n_h}, keff_lo {n_k}, qr {n_qr}, lanczos {n_lz}, "
+        f"launches: heff_lo {n_h}, keff_lo {n_k}, qr {n_qr} {routes}, "
+        f"lanczos {n_lz}, "
         f"renorm_hi {n_r}, matvec_hi {n_m}; peak device memory "
         f"{peak_gb:.2f} GB")
     log(f"{tag}: trace {tr.real:.6f}{tr.imag:+.2e}j; populations "
@@ -1055,9 +1083,14 @@ def phase_radical_pair(times, preset: str) -> dict:
     require(n_h > 0 and n_k > 0, "a matvec kernel was never launched")
     require(plain == 0, f"{plain} plain-version calls on the card")
     require(n_lz == 0, "the Lanczos kernel ran on the Arnoldi path")
-    steps, per_step = 1 + RP_STEPS, len(mgs_moves(engine))
-    require(n_qr == steps * per_step,
-            f"qr launches {n_qr} != {steps} × {per_step}")
+    steps, moves = 1 + RP_STEPS, mgs_moves(engine)
+    require(n_qr == steps * len(moves),
+            f"qr launches {n_qr} != {steps} × {len(moves)}")
+    by_route = {way: steps * sum(CQ.route(*shape) == way
+                                 for _, _, shape in moves)
+                for way in CQ.ROUTES}
+    require(routes == by_route and by_route["cluster"] > 0,
+            f"qr launches by route {routes} != {by_route}")
     if high:
         # every in-sweep transfer (nsite − 1 per half-sweep) and every
         # exact-prefix matvec (one per Krylov call) went through the kernel
@@ -1072,7 +1105,8 @@ def phase_radical_pair(times, preset: str) -> dict:
     profile_step(engine, RP_DT)
     counts = {"heff_lo": n_h, "keff_lo": n_k, "mgs_qr": n_qr,
               "renorm_hi": n_r, "matvec_hi": n_m}
-    return {name: (n, err.get(name)) for name, n in counts.items() if n}
+    return {**{name: (n, err.get(name)) for name, n in counts.items() if n},
+            "mgs_qr_routes": routes}
 
 
 KERNELS = [
@@ -1082,7 +1116,7 @@ KERNELS = [
      "pytdscf_tpu/mps/pallas_qr.py:153"),
     ("heff_lo", "pytdscf_torch/csrc/matvec_lo.cu",
      "pytdscf_tpu/mps/pallas_matvec.py:175"),
-    ("keff_lo", "pytdscf_torch/csrc/matvec_lo.cu",
+    ("keff_lo", "pytdscf_torch/csrc/keff_tc.cu",
      "pytdscf_tpu/mps/pallas_matvec.py:244"),
     # one kernel, two wrappers: the environment transfer, and the "high"
     # matvec that the JAX package runs as an XLA einsum at Precision.HIGH
@@ -1126,6 +1160,11 @@ def main() -> int:
             **{key: times[name][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    # the MGS cases: each timed shape with its route's main-path launches
+    kernels[[k["name"] for k in kernels].index("mgs_qr")]["cases"] = [
+        {**case, "launches": sum(path["mgs_qr_routes"][case["route"]]
+                                 for path in paths)}
+        for case in times["mgs_qr"]["cases"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # device, m, q, r_out, qwork (or NULL), N, r, stream
     "pytdscf_mgs_qr_c64": [_I, _P, _P, _P, _P, _I, _I, _P],
+    # device, m, q, r_out, N, r, stream
+    "pytdscf_mgs_qr_cluster_c64": [_I, _P, _P, _P, _I, _I, _P],
     # device, H, Rt, v, out, status, scratch, nc, M, r, kmax,
     # scale_re, scale_im, thresh, conserve, stream
     "pytdscf_lanczos_expm_c64": [
@@ -48,9 +50,9 @@ SIGNATURES = {
     "pytdscf_heff_lo_c64": [
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    # device, sig, L, R, part, out, B, K, X, Rd, w, Tk, Tx, stream
-    "pytdscf_keff_lo_c64": [
-        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    # device, sig, L, R, sigp, t1, out, B, K, X, Rd, w, stream
+    "pytdscf_keff_tc_c64": [
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ],
     # device, psi, L, W (or NULL), R, part, out, B, K, X, Rd, din, dout,
     # wl, wr, Tk, Tx, G, stream

@@ -1,21 +1,19 @@
-// Relaxed-Krylov matvecs: the single-bf16-pass H_eff and K_eff chains.
+// Relaxed-Krylov matvec: the single-bf16-pass H_eff chain.
 //
-// Replaces the JAX package's mps/pallas_matvec.py:heff_pallas (Pallas body
-// _heff_kernel) and keff_pallas (_keff_kernel).  What they compute:
+// Replaces the JAX package's mps/pallas_matvec.py:heff_pallas (its
+// pl.pallas_call at :175, Pallas body _heff_kernel).  What it computes:
 //
-//   H_eff:  T1[k,j,x,c] = bf16( sum_r   psi[k,j,r] * R[x,c,r] )
-//           T2[k,i,a,x] = bf16( sum_j,c W[a,i,j,c] * T1[k,j,x,c] )
-//           out[b,i,x]  =       sum_a,k L[b,a,k] * T2[k,i,a,x]
-//   K_eff:  the same chain with d = 1 and no W:
-//           T1[k,x,a]   = bf16( sum_r sig[k,r] * R[x,a,r] )
-//           out[b,x]    =       sum_a,k L[b,a,k] * T1[k,x,a]
+//   T1[k,j,x,c] = bf16( sum_r   psi[k,j,r] * R[x,c,r] )
+//   T2[k,i,a,x] = bf16( sum_j,c W[a,i,j,c] * T1[k,j,x,c] )
+//   out[b,i,x]  =       sum_a,k L[b,a,k] * T2[k,i,a,x]
 //
+// (The K_eff chain, the same with d = 1 and no W, is keff_tc.cu.)
 // L, W, R arrive as bf16 (re, im) pairs (the per-site operands of
-// cuda_matvec.py), psi/sig as complex64 and is rounded to bf16 on load
+// cuda_matvec.py), psi as complex64 and is rounded to bf16 on load
 // (round to nearest even); every product of two bf16 values is exact in
 // float32 and every sum is accumulated in float32, so the kernel rounds at
-// exactly the points of kernels.heff_apply_lo / keff_apply_lo, its plain
-// versions.  Only the order of the float32 sums differs.
+// exactly the points of kernels.heff_apply_lo, its plain version.  Only the
+// order of the float32 sums differs.
 //
 // What bounds it on the H100: arithmetic.  A bulk chi=1024 H_eff matvec
 // (d = 4, w = 8) is 2 x 34 G complex multiply-adds; the two chain
@@ -37,7 +35,7 @@
 // Tk * d <= 128 and Tx columns of x with Tx * max(w_l, w_r) <= 128, so T1
 // and T2 hold at most 128 x 128 complex bf16 (64 KB each).  Every shape
 // the chain produces is taken; ragged tiles are masked.  Tensor cores
-// (mma.sync / wgmma on bf16) are later work.
+// (cgemm_bf16.cuh, as keff_tc.cu uses them) are later work.
 //
 // Layouts (row-major, complex as interleaved (re, im)):
 //   psi (K, d, Rd) complex64 | L (B, wl, K) bf16x2 | W (wl, d, d, wr) bf16x2
@@ -83,13 +81,12 @@ __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
   acc.y = fmaf(a.y, b.x, acc.y);
 }
 
-size_t smem_bytes(bool has_w, int d, int wl, int wr) {
-  const size_t w = has_w ? sizeof(float2) * (size_t)wl * d * d * wr : 0;
+size_t smem_bytes(int d, int wl, int wr) {
+  const size_t w = sizeof(float2) * (size_t)wl * d * d * wr;
   return w + sizeof(float2) * kStageLen +
          2 * sizeof(__nv_bfloat162) * (size_t)kTile * kTile;
 }
 
-template <bool HAS_W>
 __global__ void __launch_bounds__(kThreads, 1)
 matvec_lo_kernel(const float2* __restrict__ psi,
                  const __nv_bfloat162* __restrict__ L,
@@ -105,7 +102,7 @@ matvec_lo_kernel(const float2* __restrict__ psi,
   const int N1 = Tx * wr;  // T1 columns (x, c)
   const int K3 = wl * Tk;  // T2 rows (a, k)
   const int N3 = d * Tx;   // T2 columns (i, x)
-  const int nW = HAS_W ? wl * d * d * wr : 0;
+  const int nW = wl * d * d * wr;
 
   float2* Ws = reinterpret_cast<float2*>(smem_raw);
   float2* stage = Ws + nW;
@@ -115,9 +112,7 @@ matvec_lo_kernel(const float2* __restrict__ psi,
   __nv_bfloat162* T1s = reinterpret_cast<__nv_bfloat162*>(stage + kStageLen);
   __nv_bfloat162* T2s = T1s + kTile * kTile;
 
-  if (HAS_W) {
-    for (int e = tid; e < nW; e += kThreads) Ws[e] = ld_bf2(&W[e]);
-  }
+  for (int e = tid; e < nW; e += kThreads) Ws[e] = ld_bf2(&W[e]);
 
   // ---- phase 1: T1 = psi . R over r (float32 FMA), rounded to bf16.
   // Thread (tr, tc) owns rows tr + 32 i and columns tc + 16 j, so that a
@@ -172,7 +167,7 @@ matvec_lo_kernel(const float2* __restrict__ psi,
   __syncthreads();
 
   // ---- phase 2: T2[(a,k)][(i,x)] from T1[(k,j)][(x,c)]
-  if (HAS_W) {
+  {
     const int dw = d * wr;
     for (int col = tid; col < Tk * Tx; col += kThreads) {
       const int k = col / Tx, x = col % Tx;
@@ -195,19 +190,12 @@ matvec_lo_kernel(const float2* __restrict__ psi,
         T2s[(a * Tk + k) * N3 + i * Tx + x] = to_bf2(acc);
       }
     }
-  } else {
-    // K_eff: d = 1, T2[(a,k)][x] = T1[k][(x,a)] (already bf16)
-    for (int e = tid; e < Tk * Tx * wr; e += kThreads) {
-      const int k = e / (Tx * wr), rem = e % (Tx * wr);
-      const int x = rem / wr, a = rem % wr;
-      T2s[(a * Tk + k) * N3 + x] = T1s[k * N1 + x * wr + a];
-    }
   }
 
   // ---- phase 3: part[k tile][b, (i,x)] = sum_(a,k) L[b,a,k] T2[(a,k)][(i,x)]
   // Thread tile: 4 rows of b x 4 columns (i,x), over nG column groups and
-  // kThreads / nG row groups; a narrow T2 (K_eff: N3 = Tx = 16) takes
-  // nG = 4 so that no thread computes empty columns.
+  // kThreads / nG row groups; a narrow T2 (N3 <= 16) takes nG = 4 so that
+  // no thread computes empty columns.
   const int nG = N3 <= 16 ? 4 : 16;
   const int bG = kThreads / nG;
   const int bchunk = 4 * bG;
@@ -284,23 +272,22 @@ __global__ void sum_ktiles_kernel(const float2* __restrict__ part,
   }
 }
 
-template <bool HAS_W>
 int launch(const void* psi, const void* L, const void* W, const void* R,
            void* part, void* out, int B, int K, int X, int Rd, int d, int wl,
            int wr, int Tk, int Tx, void* stream) {
   const int wmax = wl > wr ? wl : wr;
   if (Tk < 1 || Tx < 1 || Tk * d > kTile || Tx * wmax > kTile ||
-      (HAS_W && d * wr > kMaxDW))
+      d * wr > kMaxDW)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(HAS_W, d, wl, wr);
+  const size_t smem = smem_bytes(d, wl, wr);
   cudaError_t err = cudaFuncSetAttribute(
-      matvec_lo_kernel<HAS_W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      matvec_lo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nkt = (K + Tk - 1) / Tk;
   const dim3 grid((X + Tx - 1) / Tx, nkt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  matvec_lo_kernel<HAS_W><<<grid, kThreads, smem, st>>>(
+  matvec_lo_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const float2*>(psi),
       static_cast<const __nv_bfloat162*>(L),
       static_cast<const __nv_bfloat162*>(W),
@@ -329,18 +316,6 @@ extern "C" int pytdscf_heff_lo_c64(int device, const void* psi, const void* L,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch<true>(psi, L, W, R, part, out, B, K, X, Rd, d, wl, wr, Tk,
-                      Tx, stream);
-}
-
-// K_eff: out (B, X) = chain(sig (K, Rd)); part holds ceil(K / Tk) slots of
-// (B, X).  Requires Tk <= 128 and Tx * w <= 128.
-extern "C" int pytdscf_keff_lo_c64(int device, const void* sig, const void* L,
-                                   const void* R, void* part, void* out, int B,
-                                   int K, int X, int Rd, int w, int Tk, int Tx,
-                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  return launch<false>(sig, L, nullptr, R, part, out, B, K, X, Rd, 1, w, w,
-                       Tk, Tx, stream);
+  return launch(psi, L, W, R, part, out, B, K, X, Rd, d, wl, wr, Tk, Tx,
+                stream);
 }

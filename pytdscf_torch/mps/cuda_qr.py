@@ -1,4 +1,4 @@
-"""Thin QR by MGS(×2) for the small-bond gauge, as one CUDA kernel.
+"""Thin QR by MGS(×2) for the gauge moves, as CUDA kernels.
 
 Replaces the JAX package's ``mps/pallas_qr.py:mgs_qr_fused`` (its Pallas body is
 ``_mgs_kernel`` / ``_mgs_phase``).  The kernel is ``csrc/mgs_qr.cu``; its
@@ -17,13 +17,20 @@ Semantics (identical in both versions):
 
 What bounds the kernel on the H100: not bytes or FLOPs (a (240, 30) factor
 is 0.35 MFLOP over 58 KB) but the serial chain of r columns, each a few
-block-wide reductions.  The design keeps that chain on one SM: one block of
-256 threads holds Q in shared memory, column-major so that the per-column
-dot products and updates read consecutive banks, and runs all r columns in
-one launch.  Q sits in the block's 227 KB of shared memory when it fits
-(N·r ≤ ~28k complex entries; the 184-site chain's largest is 240 × 30);
-a larger Q (the χ=1024 chain's (1024, 64) edge gauge) sits in a
-device-memory scratch the wrapper allocates, read through L2.
+reductions over all N rows.  :func:`route` picks one of three routes by the
+shared memory they need (see the source note in ``csrc/mgs_qr.cu``):
+
+* ``"block"``: one block of 256 threads holds Q in its shared memory,
+  column-major, and runs all r columns in one launch.  Every shape of the
+  184-site chain takes it ((240, 30) the largest).
+* ``"cluster"``: one thread-block cluster of :data:`CLUSTER` CTAs, each
+  holding ceil(N / 8) rows of Q in its own shared memory; the reductions run
+  over the cluster's distributed shared memory, summed in rank order so
+  that every CTA takes the same decisions.  The χ=1024 radical pair's
+  (1024, 64) edge gauge takes it.
+* ``"device"``: one block with Q in a device-memory scratch the wrapper
+  allocates, read through L2, for a Q beyond a cluster's shared memory.
+  No shape of today's paths takes it.
 """
 
 from __future__ import annotations
@@ -74,19 +81,48 @@ def mgs_qr_plain(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return Q, R
 
 
-def smem_bytes(N: int, r: int, q_in_smem: bool = True) -> int:
-    """Dynamic shared memory of one launch: Q (unless it is in device
-    memory), v, e and three coefficient columns, complex64."""
-    return 8 * ((N * r if q_in_smem else 0) + 2 * N + 3 * r)
+#: CTAs of the cluster route (the portable cluster size)
+CLUSTER = 8
+#: The kernel's routes, in the order :func:`route` tries them.
+ROUTES = ("block", "cluster", "device")
+
+
+def smem_bytes(N: int, r: int, route: str = "block") -> int:
+    """Dynamic shared memory of one block (one CTA) of a route, complex64:
+    ``"block"``: Q, v, e and three coefficient columns; ``"cluster"``: the
+    CTA's ceil(N / CLUSTER) rows of Q (row stride r rounded up to an odd
+    number), of v and of e, three coefficient columns, four strip partials
+    and two inboxes of CLUSTER partial columns; ``"device"``: v, e and the
+    coefficients (Q is in device memory)."""
+    if route == "block":
+        return 8 * (N * r + 2 * N + 3 * r)
+    if route == "cluster":
+        nc = -(-N // CLUSTER)
+        return 8 * (nc * (r | 1) + 2 * nc + (3 + 4 + 2 * CLUSTER) * r)
+    if route == "device":
+        return 8 * (2 * N + 3 * r)
+    raise ValueError(f"unknown mgs_qr route {route!r}")
+
+
+def route(N: int, r: int) -> str:
+    """The route of an (N, r) factor: the first of :data:`ROUTES` whose
+    shared memory fits one block; raises if none does."""
+    for name in ROUTES:
+        if smem_bytes(N, r, name) <= MAX_SMEM:
+            return name
+    raise ValueError(
+        f"mgs_qr: the columns of an ({N}, {r}) matrix do not fit one "
+        "block's shared memory"
+    )
 
 
 def mgs_qr(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Thin QR ``m = Q·R`` of an (N, r) matrix, N ≥ r.
 
-    A CUDA tensor goes through the kernel (complex64, contiguous, or this
-    raises); a CPU tensor through :func:`mgs_qr_plain`.
-    ``mgs_qr.launches`` counts kernel launches, ``mgs_qr.plain_calls``
-    the CPU calls.
+    A CUDA tensor goes through the kernel of its :func:`route` (complex64,
+    contiguous, or this raises); a CPU tensor through :func:`mgs_qr_plain`.
+    ``mgs_qr.launches`` counts kernel launches (``mgs_qr.route_launches``
+    by route), ``mgs_qr.plain_calls`` the CPU calls.
     """
     if m.ndim != 2:
         raise ValueError(f"mgs_qr takes a matrix, got shape {tuple(m.shape)}")
@@ -102,25 +138,28 @@ def mgs_qr(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         raise TypeError(f"the CUDA mgs_qr takes complex64, got {m.dtype}")
     if not m.is_contiguous():
         raise ValueError("the CUDA mgs_qr takes a contiguous matrix")
-    qwork = None
-    if smem_bytes(N, r) > MAX_SMEM:
-        if smem_bytes(N, r, q_in_smem=False) > MAX_SMEM:
-            raise ValueError(
-                f"mgs_qr: the columns of an ({N}, {r}) matrix do not fit "
-                "one block's shared memory"
-            )
-        qwork = torch.empty((r, N), dtype=m.dtype, device=m.device)
+    way = route(N, r)
     q = torch.empty((N, r), dtype=m.dtype, device=m.device)
     rmat = torch.empty((r, r), dtype=m.dtype, device=m.device)
-    code = _cuda.load().pytdscf_mgs_qr_c64(
-        m.device.index, m.data_ptr(), q.data_ptr(), rmat.data_ptr(),
-        None if qwork is None else qwork.data_ptr(), N, r,
-        torch.cuda.current_stream(m.device).cuda_stream,
-    )
+    lib, stream = _cuda.load(), torch.cuda.current_stream(m.device).cuda_stream
+    if way == "cluster":
+        code = lib.pytdscf_mgs_qr_cluster_c64(
+            m.device.index, m.data_ptr(), q.data_ptr(), rmat.data_ptr(), N, r,
+            stream,
+        )
+    else:
+        qwork = (torch.empty((r, N), dtype=m.dtype, device=m.device)
+                 if way == "device" else None)
+        code = lib.pytdscf_mgs_qr_c64(
+            m.device.index, m.data_ptr(), q.data_ptr(), rmat.data_ptr(),
+            None if qwork is None else qwork.data_ptr(), N, r, stream,
+        )
     _cuda.check(code, "mgs_qr")
     mgs_qr.launches += 1
+    mgs_qr.route_launches[way] += 1
     return q, rmat
 
 
 mgs_qr.launches = 0
+mgs_qr.route_launches = dict.fromkeys(ROUTES, 0)
 mgs_qr.plain_calls = 0

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Check that two builds of the port's kernels give the same bits.
 
-Runs the Lanczos and MGS kernels of the ``pytdscf_torch`` package found
-under ROOT on fixed inputs (seeded with numpy, at the 184-site chain's
-shapes: the H step at (240, 30) with 4 channels, the K step at (30, 30),
-the QR at (240, 30) full rank and rank deficient and at (1024, 64)) and
-saves every output; ``compare`` exits 1 unless two such files are equal
-bit for bit.  On a machine with an NVIDIA GPU and nvcc, e.g. for a
-checkout of the parent commit unpacked under ``parent/``:
+Runs the kernels of the ``pytdscf_torch`` package found under ROOT on
+fixed inputs (seeded with numpy) through their wrappers and saves every
+output: the Lanczos kernel at the 184-site chain's shapes (the H step at
+(240, 30) with 4 channels, the K step at (30, 30)), the MGS QR at (240, 30)
+full rank and rank deficient and at (1024, 64), and the relaxed matvecs
+``heff_lo`` and ``keff_lo`` at the χ=1024 radical pair's bulk shape and a
+ragged one.  ``compare`` exits 1 unless two such files are equal bit for
+bit, except for the outputs named by ``--expect-differ`` (comma-separated
+prefixes of output names), which may differ.  On a machine with an NVIDIA
+GPU and nvcc, e.g. for a checkout of the parent commit unpacked under
+``parent/``:
 
     python3 scripts/kernel_bits.py dump parent out/parent.npz
     python3 scripts/kernel_bits.py dump . out/this.npz
-    python3 scripts/kernel_bits.py compare out/parent.npz out/this.npz
+    python3 scripts/kernel_bits.py compare out/parent.npz out/this.npz \
+        --expect-differ qr_large,keff
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ def dump(root: str, path: str) -> None:
     import torch
 
     from pytdscf_torch.mps import cuda_lanczos as CL
+    from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_qr as CQ
 
     def t(a):
@@ -58,25 +64,43 @@ def dump(root: str, path: str) -> None:
                     ("large", _cx(rng, 1024, 64))):
         q, r = CQ.mgs_qr(t(m))
         res[f"qr_{name}_q"], res[f"qr_{name}_r"] = q.cpu().numpy(), r.cpu().numpy()
+    # (b, k, x, w, d): the χ=1024 bulk and a shape ragged in every tile
+    for tag, (b, k, x, w, d) in (("bulk", (1024, 1024, 1024, 8, 4)),
+                                 ("ragged", (130, 70, 33, 7, 4))):
+        L, W, R = _cx(rng, b, w, k), _cx(rng, w, d, d, w), _cx(rng, x, w, x)
+        out = CM.heff_lo(CM.heff_operands(t(L), t(W), t(R)),
+                         t(_cx(rng, k, d, x)))
+        res[f"heff_{tag}"] = out.cpu().numpy()
+        out = CM.keff_lo(CM.keff_operands(t(L), t(R)), t(_cx(rng, k, x)))
+        res[f"keff_{tag}"] = out.cpu().numpy()
     torch.cuda.synchronize()
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **res)
     print(f"kernel_bits: {len(res)} outputs of {root} in {path}")
 
 
-def compare(a: str, b: str) -> int:
+def compare(a: str, b: str, expect_differ: tuple[str, ...] = ()) -> int:
     fa, fb = np.load(a), np.load(b)
     bad = [k for k in fa.files
            if k not in fb.files or fa[k].tobytes() != fb[k].tobytes()]
+    unexpected = [k for k in bad if not k.startswith(expect_differ)]
     print(f"kernel_bits: {len(fa.files) - len(bad)}/{len(fa.files)} outputs "
-          f"identical bit for bit; differ: {bad}")
-    return 1 if bad or set(fa.files) != set(fb.files) else 0
+          f"identical bit for bit; differ: {bad} (expected to differ: "
+          f"{list(expect_differ)}; unexpected: {unexpected})")
+    for k in bad:
+        if k in fb.files and fa[k].shape == fb[k].shape:
+            d = np.abs(fa[k] - fb[k]).max() / max(np.abs(fa[k]).max(), 1e-30)
+            print(f"kernel_bits: {k}: max |Δ| / max |a| = {d:.3e}")
+    return 1 if unexpected or set(fa.files) != set(fb.files) else 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "dump":
-        dump(sys.argv[2], sys.argv[3])
-    elif len(sys.argv) == 4 and sys.argv[1] == "compare":
-        sys.exit(compare(sys.argv[2], sys.argv[3]))
+    args = sys.argv[1:]
+    if len(args) == 3 and args[0] == "dump":
+        dump(args[1], args[2])
+    elif len(args) in (3, 5) and args[0] == "compare" and (
+            len(args) == 3 or args[3] == "--expect-differ"):
+        names = tuple(args[4].split(",")) if len(args) == 5 else ()
+        sys.exit(compare(args[1], args[2], names))
     else:
         sys.exit(__doc__)

@@ -13,9 +13,10 @@ they differ only in the order of the float32 sums, which now and then
 moves a T1/T2 entry across a bf16 rounding boundary (one bf16 ulp,
 2^-8 relative).  Those rare flips leave the outputs 3e-8 to 4e-5 apart
 relative to the output norm (measured on the CPU at the shapes below and
-at (256, 256, 256, 8, 4)); the bar against JAX is 5e-4.  On the card the
+at (256, 256, 256, 8, 4)); the bar against JAX is 5e-4.  On the card each
 kernel sums over χ=1024 at the bulk site in its own fixed order (k tiles
-summed one after the other).  On an H100 it reads 1.6e-7 to 5e-7 against
+one after the other for H_eff, the tensor cores' order along the whole
+depth for K_eff).  On an H100 it reads 1.6e-7 to 5.8e-7 against
 plain on the χ=1024 chain's own operands (``chip_smoke.py`` holds those
 to 1e-4), and up to 9.7e-5 on the random operands below (the largest at
 the (1024, 1024, 1024, 8, 4) bulk shape, where many T1 entries are long
@@ -145,10 +146,54 @@ def test_wrappers_check_shapes():
         CM.keff_lo(CM.keff_operands(T(L), T(R)), T(sig[:, :8]))
 
 
+def _keff_staged(ops, sig):
+    """The K_eff kernel's two stages in plain PyTorch, through its layouts
+    (``csrc/keff_tc.cu``): σ as zero-padded bf16 planes (2, kp, rp); stage 1
+    transposed, T1t[(x,a), k] = Σ_r R[(x,a), r] σ[k, r], rounded to bf16 and
+    written to the (2, x, a, kp) scratch; stage 2 reads it back as rows x
+    of depth (a, k) against L's rows b of depth (a, k)."""
+    _, b, w, kp = ops.L.shape
+    _, x, _, rp = ops.R.shape
+    k, r = sig.shape
+    sigp = torch.zeros((2, kp, rp), dtype=torch.bfloat16)
+    sigp[:, :k, :r] = torch.view_as_real(sig).to(torch.bfloat16).movedim(-1, 0)
+    f32 = torch.float32
+    Rr, Ri = ops.R.reshape(2, x * w, rp).to(f32)
+    sr, si = sigp.to(f32)
+    t1 = torch.empty((2, x, w, kp), dtype=torch.bfloat16)
+    t1[0] = (Rr @ sr.T - Ri @ si.T).to(torch.bfloat16).reshape(x, w, kp)
+    t1[1] = (Rr @ si.T + Ri @ sr.T).to(torch.bfloat16).reshape(x, w, kp)
+    Lr, Li = ops.L.reshape(2, b, w * kp).to(f32)
+    Tr, Ti = t1.reshape(2, x, w * kp).to(f32)
+    return torch.complex(Lr @ Tr.T - Li @ Ti.T, Lr @ Ti.T + Li @ Tr.T)
+
+
+@pytest.mark.parametrize("b,k,x,w", [(130, 70, 33, 7), (4, 1, 16, 7), (24, 16, 40, 3)])
+def test_keff_kernel_layout_matches_plain(b, k, x, w):
+    """The K_eff kernel's layout contract on the CPU: σ, R and L as small
+    integers (exact in bf16), so that every float32 sum is exact in any
+    order and T1's bf16 rounding (its entries reach ~10³) is the only
+    rounding: the staged reference must equal ``keff_apply_lo`` bit for
+    bit, and the padding must hold zeros."""
+    rng = np.random.default_rng(15)
+
+    def ints(*shape):
+        return T(rng.integers(-3, 4, shape) + 1j * rng.integers(-3, 4, shape))
+
+    L, R, sig = ints(b, w, k), ints(x, w, x), ints(k, x)
+    ops = CM.keff_operands(L, R)
+    assert ops.L.shape == (2, b, w, CM.pad8(k)) and ops.R.shape == (2, x, w, CM.pad8(x))
+    assert not ops.L[..., k:].any() and not ops.R[..., x:].any()
+    want = CM.keff_lo(ops, sig.to(torch.complex64))
+    got = _keff_staged(ops, sig.to(torch.complex64))
+    assert float(torch.linalg.vector_norm(want)) > 0
+    assert torch.equal(got, want)
+
+
 def _lossy(name, variant, ops, v):
     """The plain matvec with one bf16 rounding more ("bf16 output") or
     one less ("T1 in float32"): faults REL_CARD must catch."""
-    planes = [t.unbind(-1) for t in ops]
+    planes = CM.plain_planes(ops)
     f32 = torch.float32
     if variant == "bf16 output":
         plain = TK.heff_apply_lo if name == "heff" else TK.keff_apply_lo
@@ -171,10 +216,10 @@ def _bar_case(name, device, b, k, x, w, d):
     if name == "heff":
         ops = CM.heff_operands(cx(b, w, k), cx(w, d, d, w), cx(x, w, x))
         v = cx(k, d, x)
-        return ops, v, TK.heff_apply_lo(*(t.unbind(-1) for t in ops), v)
+        return ops, v, TK.heff_apply_lo(*CM.plain_planes(ops), v)
     ops = CM.keff_operands(cx(b, w, k), cx(x, w, x))
     v = cx(k, x)
-    return ops, v, TK.keff_apply_lo(*(t.unbind(-1) for t in ops), v)
+    return ops, v, TK.keff_apply_lo(*CM.plain_planes(ops), v)
 
 
 @pytest.mark.parametrize("name", ["heff", "keff"])
@@ -213,7 +258,7 @@ def test_heff_kernel_matches_plain_on_card(cuda, b, k, x, w, d):
     launches = CM.heff_lo.launches
     got = CM.heff_lo(ops, psi)
     again = CM.heff_lo(ops, psi)
-    plain = TK.heff_apply_lo(*(t.unbind(-1) for t in ops), psi)
+    plain = TK.heff_apply_lo(*CM.plain_planes(ops), psi)
     torch.cuda.synchronize()
     assert CM.heff_lo.launches == launches + 2
     assert bool(torch.isfinite(got).all())
@@ -224,6 +269,8 @@ def test_heff_kernel_matches_plain_on_card(cuda, b, k, x, w, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,k,x,w", [
     (1024, 1024, 1024, 8), (4, 4, 16, 7), (256, 256, 64, 8), (24, 16, 40, 3),
+    (130, 70, 33, 7),  # ragged in both GEMMs: stage 2's depth 7 × 72
+    (1, 1, 4, 1), (4, 1, 16, 7),  # the chain's edge bonds: k, r < 8
 ])
 def test_keff_kernel_matches_plain_on_card(cuda, b, k, x, w):
     rng = np.random.default_rng(12)
@@ -232,7 +279,7 @@ def test_keff_kernel_matches_plain_on_card(cuda, b, k, x, w):
     launches = CM.keff_lo.launches
     got = CM.keff_lo(ops, sig)
     again = CM.keff_lo(ops, sig)
-    plain = TK.keff_apply_lo(*(t.unbind(-1) for t in ops), sig)
+    plain = TK.keff_apply_lo(*CM.plain_planes(ops), sig)
     torch.cuda.synchronize()
     assert CM.keff_lo.launches == launches + 2
     assert torch.equal(got, again)

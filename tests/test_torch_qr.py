@@ -98,6 +98,32 @@ def test_plain_rank1_plus_tail():
     assert float(torch.linalg.matrix_norm(q @ r - m)) < 1e-5
 
 
+def test_route_by_shape():
+    """Every MGS shape of the 184-site chain takes the one-block route (the
+    kernel it had before the cluster route); the radical pair's (1024, 64)
+    edge gauge takes the cluster; only a Q beyond a cluster's shared memory
+    takes device memory."""
+    from pytdscf_torch.models.holstein import singlet_fission_chain
+    from pytdscf_torch.mps.lattice import bond_dims_for_site
+
+    phys = [b.nprim for b in singlet_fission_chain()[0]]
+    chain = set()
+    for p, d in enumerate(phys):
+        l, r = bond_dims_for_site(phys, p, 30)
+        chain |= {(l * d, r), (r * d, l)}  # qr_right, lq_left operands
+    chain = {(n, k) for n, k in chain if n >= k}
+    assert (240, 30) in chain
+    assert {CQ.route(n, r) for n, r in chain} == {"block"}
+    for shape in ((4, 4), (16, 4), (64, 16), (256, 64), (240, 30)):
+        assert CQ.route(*shape) == "block"
+    assert CQ.route(1024, 64) == "cluster"
+    assert CQ.route(256, 120) == "cluster"  # Nc = 32 rows per CTA
+    assert CQ.route(4096, 64) == "device"
+    with pytest.raises(ValueError):
+        CQ.route(40000, 64)
+    assert CQ.smem_bytes(1024, 64, "cluster") <= CQ.MAX_SMEM < CQ.smem_bytes(1024, 64)
+
+
 def test_wrapper_runs_plain_version_on_cpu():
     m = torch.from_numpy(_cx(np.random.default_rng(6), 24, 6))
     before = CQ.mgs_qr.plain_calls, CQ.mgs_qr.launches
@@ -114,18 +140,26 @@ def test_wrapper_runs_plain_version_on_cpu():
 @pytest.mark.parametrize("shape,dead", [
     ((240, 30), []), ((240, 30), [3, 7, 29]), ((90, 30), []), ((64, 30), []),
     ((8, 8), [5]), ((240, 8), []), ((64, 1), []),
-    # the χ=1024 chain's edge gauge: Q too large for shared memory
-    ((1024, 64), []), ((1024, 64), [5, 63]),
+    # the χ=1024 radical pair's edge gauge: Q on a cluster of 8 CTAs
+    ((1024, 64), []), ((1024, 64), [5, 63]), ((1024, 64), [0]),
+    # completions e_40 and e_100 in the CTAs of rank 1 and 3 (32 rows each)
+    ((256, 120), [40, 100]),
+    # Q in device memory
+    ((4096, 64), [9]),
 ])
 def test_kernel_matches_plain_on_card(cuda, shape, dead):
     m_np = _cx(np.random.default_rng(7), *shape)
     m_np[:, dead] = 0.0
     m = torch.from_numpy(m_np).to(cuda)
-    launches = CQ.mgs_qr.launches
+    way = CQ.route(*shape)
+    launches, by_route = CQ.mgs_qr.launches, CQ.mgs_qr.route_launches[way]
     q, r = CQ.mgs_qr(m)
+    q2, r2 = CQ.mgs_qr(m)
     q_ref, r_ref = CQ.mgs_qr_plain(m)
     torch.cuda.synchronize()
-    assert CQ.mgs_qr.launches == launches + 1
+    assert CQ.mgs_qr.launches == launches + 2
+    assert CQ.mgs_qr.route_launches[way] == by_route + 2
+    assert torch.equal(q, q2) and torch.equal(r, r2)
     _check(q.cpu().numpy(), r.cpu().numpy(), m_np, q_ref.cpu().numpy(),
            r_ref.cpu().numpy())
     for k in dead:
