@@ -43,7 +43,10 @@ Phases (any failure exits nonzero, before the result line):
       against its plain version on the chain's operands (bulk and edge
       sites; relative error < 1e-4, which the plain output rounded to bf16
       must fail; a second launch bit-identical; kernel and plain times at
-      the bulk); the MGS QR against its plain version on the chain's own
+      the bulk); ``heff_lo`` at the bulk with d = 9 and d = 16 on seeded
+      random operands (< 3e-4, the bf16-rounded output failing it), and
+      one ``heff_lo`` call at the χ=2048 bulk, timed, allocating under
+      2 GB; the MGS QR against its plain version on the chain's own
       gauge operands at every shape it takes there, (1024, 64) down to
       (4, 4), the (1024, 64) one through the cluster route (timed beside
       ``torch.linalg.qr``), a second launch bit-identical;
@@ -64,7 +67,9 @@ Phases (any failure exits nonzero, before the result line):
       which the plain version with its lo passes dropped must fail; a
       second launch bit-identical; the lo planes of the operands nonzero;
       at the bulk the kernel's, the plain version's and one complex64
-      ``torch.einsum``'s times;
+      ``torch.einsum``'s times; the same checks at the bulk with d = 9 and
+      d = 16 (w = 8) on seeded random operands, for both transfers and the
+      H_eff matvec;
    b. one warm-up and ten timed steps, counted: as 5b, and 34 environment
       transfers per step through the kernel (374), one "high" matvec
       launch per Krylov call;
@@ -122,10 +127,21 @@ RP_KEY = "chi1024_nuc8_split1_lt2_dt1_steps10_complex64"
 RP_BULK_SITE = 8  # a (1024, 4, 1024) site
 # relaxed matvec kernel vs its plain version, relative to the output norm:
 # the same bf16 rounding points, float32 sums in another order.  On the
-# chain's operands the kernel reads 1.6e-7 to 5e-7 and one bf16 rounding
-# more (the output rounded to bf16) 1.4e-3 to 1.7e-3, so the bar sits
-# between (random operands read more: tests/test_torch_matvec.py)
+# chain's operands the kernels read 0 to 9.2e-6 and one bf16 rounding more
+# (the output rounded to bf16) 1.4e-3 to 1.7e-3, so the bar sits between.
+# Random operands read more, up to 1.1e-4 at the bulk with d = 16 (long
+# unstructured sums put many T1 entries near a bf16 rounding boundary):
+# there the bar is tests/test_torch_matvec.py's 3e-4, which the
+# bf16-rounded output fails all the same
 MATVEC_TOL = 1.0e-04
+MATVEC_TOL_RANDOM = 3.0e-04
+# sites the JAX package runs and the earlier kernels refused, at the χ=1024
+# bulk on seeded random operands: a spin-1 nucleus (d = 9) and the electron
+# pair of bench_chi.py's BENCH_SPLIT=0 layout (d = 16), MPO width 8
+WIDE_D = (9, 16)
+# one heff_lo call at the χ=2048 anchor's bulk (d = 4, w = 8): the scratch
+# it allocates (ψ's planes, T1, T2, the output) must stay under this
+CHI2048_PEAK_BYTES = 2.0e9
 # bf16x3 chain kernel vs its plain version, relative to the output norm:
 # the same splits and rounding points, the float32 sums in the tensor
 # cores' own order (1.5e-7 to 9.1e-6 on the chain's operands); the plain
@@ -889,6 +905,88 @@ def check_matvec(engine, results) -> dict:
                      f"{results[name]['bound_ms']:.4f} ms")
         log(line)
         worst[name] = max(worst.get(name, 0.0), err)
+    worst["heff_lo"] = max(worst["heff_lo"], check_heff_wide())
+    return worst
+
+
+def seeded(seed: int):
+    """complex64 tensors on the card from numpy's default_rng(seed), each
+    of unit norm as the engine keeps its blocks (so that the absolute
+    errors compare with those on the chain's operands)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def cx(*shape):
+        a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(a / np.linalg.norm(a), dtype=torch.complex64,
+                               device="cuda")
+
+    return cx
+
+
+def check_heff_wide() -> float:
+    """heff_lo against its plain version at the χ=1024 bulk with d = 9 and
+    d = 16 (w = 8) on seeded random operands (relative error under
+    MATVEC_TOL_RANDOM, which the bf16-rounded plain output must fail; a
+    second launch bit-identical), then one call at the χ=2048 bulk (d = 4,
+    w = 8): its time, and the device memory it allocates, under
+    CHI2048_PEAK_BYTES.  Returns the largest max |Δ| of the d = 9, 16
+    checks."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_matvec as CM
+    from pytdscf_torch.mps import kernels as K
+
+    worst = 0.0
+    for d in WIDE_D:
+        cx = seeded(100 + d)
+        n, w = CHI, 8
+        ops = CM.heff_operands(cx(n, w, n), cx(w, d, d, w), cx(n, w, n))
+        psi = cx(n, d, n)
+        got, again = CM.heff_lo(ops, psi), CM.heff_lo(ops, psi)
+        want = K.heff_apply_lo(*CM.plain_planes(ops), psi)
+        torch.cuda.synchronize()
+        norm = torch.linalg.vector_norm(want)
+        rel = float(torch.linalg.vector_norm(got - want) / norm)
+        coarse = torch.complex(want.real.to(torch.bfloat16).float(),
+                               want.imag.to(torch.bfloat16).float())
+        rel_coarse = float(torch.linalg.vector_norm(coarse - want) / norm)
+        err = float(torch.max(torch.abs(got - want)))
+        require(bool(torch.isfinite(got).all()), f"heff_lo d={d}: not finite")
+        require(torch.equal(got, again), f"heff_lo d={d}: a second launch "
+                "gave another result")
+        require(rel < MATVEC_TOL_RANDOM < rel_coarse,
+                f"heff_lo d={d}: rel {rel:.3e} (bf16-rounded output "
+                f"{rel_coarse:.3e}) vs the bar {MATVEC_TOL_RANDOM}")
+        log(f"heff_lo d={d} w={w} χ={n} (random): rel {rel:.3e} max|Δ| "
+            f"{err:.3e} (bf16-rounded output: rel {rel_coarse:.3e}); repeat "
+            "bit-identical")
+        worst = max(worst, err)
+        del ops, psi, got, again, want, coarse
+    torch.cuda.empty_cache()
+
+    cx = seeded(2048)
+    n, d, w = 2 * CHI, 4, 8
+    ops = CM.heff_operands(cx(n, w, n), cx(w, d, d, w), cx(n, w, n))
+    psi = cx(n, d, n)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = CM.heff_lo(ops, psi)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = bool(torch.isfinite(out).all())
+    del out
+    ms = cuda_ms(lambda: CM.heff_lo(ops, psi), 5)
+    log(f"heff_lo χ={n} d={d} w={w}: kernel {ms:.4f} ms, allocates "
+        f"{peak / 1e9:.3f} GB at its peak (bar {CHI2048_PEAK_BYTES / 1e9:g} "
+        "GB)")
+    require(finite, "heff_lo χ=2048: not finite")
+    require(peak < CHI2048_PEAK_BYTES,
+            f"heff_lo χ=2048 allocates {peak / 1e9:.3f} GB")
+    del ops, psi
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -901,14 +999,15 @@ def check_chain3(engine, results) -> dict:
     (ragged tiles, MPO widths 1 and 7)."""
     import torch
 
+    from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_renorm as CR
     from pytdscf_torch.mps import kernels as K
 
     def heff_plain(ops, v, passes=3):
-        return K.chain3_plain(K.hilo(v), *ops, passes=passes)
+        return K.chain3_plain(K.hilo(v), *CR.plain_hilo(ops), passes=passes)
 
     def keff_plain(ops, v, passes=3):
-        return K.chain3_plain(K.hilo(v.unsqueeze(1)), *ops,
+        return K.chain3_plain(K.hilo(v.unsqueeze(1)), *CR.plain_hilo(ops),
                               passes=passes)[:, 0, :]
 
     left = engine.build_left_env_stack()
@@ -919,8 +1018,6 @@ def check_chain3(engine, results) -> dict:
         psi = engine.cores[0][p].contiguous()
         a, sig = K.qr_right(psi)
         sig = sig.contiguous()
-        lops = K.renorm_left_operands(L, a, W, a)
-        rops = K.renorm_right_operands(R, psi, W, psi)
         hops = CR.heff_operands(L, W, R)
         kops = CR.keff_operands(left[p + 1][0], R)
         (l, d, r), wl, wr = psi.shape, W.shape[0], W.shape[3]
@@ -936,22 +1033,34 @@ def check_chain3(engine, results) -> dict:
                 3 * chain_flops(l, l, r, r, d, d, wl, wr),
                 nbytes(psi, L, W, R, psi)),
         } if p == RP_BULK_SITE else {}
-        # (counter, label, wrapper, plain, args, split operands whose lo
-        # planes must be nonzero (W can be exact in bf16: left out), timing)
+        # (counter, label, wrapper, plain, args, operands whose lo planes
+        # must be nonzero (W can be exact in bf16: left out), timing)
         cases += [
             ("renorm_hi", f"left, site {p}", CR.renorm_left_hi,
-             K.renorm_block_left_hi, (L, a, W, a), (*lops[:2], lops[3]),
+             K.renorm_block_left_hi, (L, a, W, a), (L, a),
              timing.get("renorm_hi")),
             ("renorm_hi", f"right, site {p}", CR.renorm_right_hi,
-             K.renorm_block_right_hi, (R, psi, W, psi),
-             (*rops[:2], rops[3]), None),
+             K.renorm_block_right_hi, (R, psi, W, psi), (R, psi), None),
             ("matvec_hi", f"H_eff, site {p}", CR.heff_hi, heff_plain,
-             (hops, psi), (K.hilo(psi), hops.L, hops.R),
-             timing.get("matvec_hi")),
+             (hops, psi), (psi, L, R), timing.get("matvec_hi")),
             ("matvec_hi", f"K_eff, bond {p}", CR.keff_hi, keff_plain,
-             (kops, sig), (K.hilo(sig), kops.L, kops.R), None),
+             (kops, sig), (sig, left[p + 1][0], R), None),
         ]
     del left, right
+    # sites the earlier kernel refused: d = 9 and 16 at the bulk, w = 8
+    for d in WIDE_D:
+        cx = seeded(200 + d)
+        n, w = CHI, 8
+        blk, A, Wd = cx(n, w, n), cx(n, d, n), cx(w, d, d, w)
+        psi_d = cx(n, d, n)
+        cases += [
+            ("renorm_hi", f"left, d={d} (random)", CR.renorm_left_hi,
+             K.renorm_block_left_hi, (blk, A, Wd, A), (blk, A), None),
+            ("renorm_hi", f"right, d={d} (random)", CR.renorm_right_hi,
+             K.renorm_block_right_hi, (blk, A, Wd, A), (blk, A), None),
+            ("matvec_hi", f"H_eff, d={d} (random)", CR.heff_hi, heff_plain,
+             (CR.heff_operands(blk, Wd, blk), psi_d), (psi_d, blk), None),
+        ]
     worst: dict[str, float] = {}
     for name, label, kernel, plain, args, split, timed in cases:
         got = kernel(*args)
@@ -970,9 +1079,10 @@ def check_chain3(engine, results) -> dict:
         require(rel < CHAIN_TOL, f"{where}: rel {rel:.3e} vs plain")
         require(rel_one > CHAIN_TOL, f"{where}: the one-pass plain version "
                 f"reads {rel_one:.3e}, inside the bar")
-        # (the trivial (1, 1, 1) edge block is exactly 1: no lo part)
-        require(all(bool((t[..., 2:] != 0).any()) for t in split
-                    if t[..., 0].numel() > 1),
+        # the wrapper's split of each operand (the trivial (1, 1, 1) edge
+        # block is exactly 1: no lo part)
+        require(all(bool(CM.bf16_planes(t, passes=3)[2:].any())
+                    for t in split if t.numel() > 1),
                 f"{where}: an operand's lo planes are all zero")
         line = (f"{where}: out {tuple(got.shape)} rel {rel:.3e} max|Δ| "
                 f"{err:.3e} (one pass: rel {rel_one:.3e}); lo planes nonzero")
@@ -1114,15 +1224,16 @@ KERNELS = [
      "pytdscf_tpu/mps/pallas_lanczos.py:296"),
     ("mgs_qr", "pytdscf_torch/csrc/mgs_qr.cu",
      "pytdscf_tpu/mps/pallas_qr.py:153"),
-    ("heff_lo", "pytdscf_torch/csrc/matvec_lo.cu",
+    ("heff_lo", "pytdscf_torch/csrc/chain_tc.cu",
      "pytdscf_tpu/mps/pallas_matvec.py:175"),
     ("keff_lo", "pytdscf_torch/csrc/keff_tc.cu",
      "pytdscf_tpu/mps/pallas_matvec.py:244"),
-    # one kernel, two wrappers: the environment transfer, and the "high"
-    # matvec that the JAX package runs as an XLA einsum at Precision.HIGH
-    ("renorm_hi", "pytdscf_torch/csrc/chain_bf16x3.cu",
+    # the bf16x3 mode of the same source, two wrappers: the environment
+    # transfer, and the "high" matvec that the JAX package runs as an XLA
+    # einsum at Precision.HIGH
+    ("renorm_hi", "pytdscf_torch/csrc/chain_tc.cu",
      "pytdscf_tpu/mps/pallas_renorm.py:223"),
-    ("matvec_hi", "pytdscf_torch/csrc/chain_bf16x3.cu",
+    ("matvec_hi", "pytdscf_torch/csrc/chain_tc.cu",
      "pytdscf_tpu/mps/pallas_renorm.py:223"),
     ("site_step", "pytdscf_torch/csrc/site_step.cu",
      "pytdscf_tpu/mps/pallas_site.py:342"),

@@ -46,19 +46,19 @@ SIGNATURES = {
     "pytdscf_lanczos_expm_c64": [
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P,
     ],
-    # device, psi, L, W, R, part, out, B, K, X, Rd, d, wl, wr, Tk, Tx, stream
-    "pytdscf_heff_lo_c64": [
-        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    # device, psi, L, W, R, psip, t1, t2, out, B, K, X, Rd, d, wl, wr, stream
+    "pytdscf_heff_tc_c64": [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     # device, sig, L, R, sigp, t1, out, B, K, X, Rd, w, stream
     "pytdscf_keff_tc_c64": [
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ],
-    # device, psi, L, W (or NULL), R, part, out, B, K, X, Rd, din, dout,
-    # wl, wr, Tk, Tx, G, stream
+    # device, psi, L, W (or NULL), R, psip, t1 (or NULL), t2, out, B, K, X,
+    # Rd, din, dout, wl, wr, stream
     "pytdscf_chain3_c64": [
-        _I, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     # device, H, Rt, psi, next, logs, site_out, psi_next, blocks, log_new,
     # status, scratch, nc, M, r, P2, kmaxH, kmaxK, scale_re, scale_im,

@@ -31,7 +31,7 @@
 // is 32 MB at the bulk (K X w bf16 pairs), which fits the 50 MB L2 and costs
 // about 20 microseconds to write and read back against milliseconds of
 // arithmetic; keeping it on chip would tie the two GEMMs to one tiling.
-// A first small kernel rounds sig into bf16 planes.
+// A first small kernel rounds sig into bf16 planes (cgemm::planes_kernel).
 //
 // Layouts (bf16 planes (re, im) first; the depth axes k and r zero-padded
 // to Kp = ceil8(K) and Rp = ceil8(Rd), as cuda_matvec.keff_operands builds
@@ -45,62 +45,6 @@
 
 #include "cgemm_bf16.cuh"
 
-namespace {
-
-// sigp (2, Kp, Rp) = bf16 planes of sig (K, Rd), zero past K and Rd
-__global__ void sig_planes_kernel(const float2* __restrict__ sig,
-                                  __nv_bfloat16* __restrict__ sigp, int K,
-                                  int Rd, int Kp, int Rp) {
-  const size_t n = (size_t)Kp * Rp;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int k = (int)(e / Rp), r = (int)(e % Rp);
-    float2 v = make_float2(0.f, 0.f);
-    if (k < K && r < Rd) v = sig[(size_t)k * Rd + r];
-    sigp[e] = __float2bfloat16_rn(v.x);
-    sigp[n + e] = __float2bfloat16_rn(v.y);
-  }
-}
-
-// stage 1 epilogue: T1t[(x,a), k] rounded to bf16 into its two planes
-struct T1Store {
-  __nv_bfloat16* t1;
-  long plane;
-  int M, N;  // rows (x,a) and columns (k, padded: Kp, the row length)
-  __device__ void operator()(int m, int n, float r0, float i0, float r1,
-                             float i1) const {
-    if (m >= M || n >= N) return;
-    __nv_bfloat16* p = t1 + (long)m * N + n;
-    if (n + 1 < N) {  // n even, N a multiple of 8: a 4-byte aligned pair
-      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(r0, r1);
-      *reinterpret_cast<__nv_bfloat162*>(p + plane) =
-          __floats2bfloat162_rn(i0, i1);
-    } else {
-      p[0] = __float2bfloat16_rn(r0);
-      p[plane] = __float2bfloat16_rn(i0);
-    }
-  }
-};
-
-// stage 2 epilogue: out[b, x] as complex64
-struct OutStore {
-  float2* out;
-  int M, N;
-  __device__ void operator()(int m, int n, float r0, float i0, float r1,
-                             float i1) const {
-    if (m >= M || n >= N) return;
-    float2* p = out + (size_t)m * N + n;
-    p[0] = make_float2(r0, i0);
-    if (n + 1 < N) p[1] = make_float2(r1, i1);
-  }
-};
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-}  // namespace
-
 // out (B, X) = K_eff chain of sig (K, Rd) over L (2, B, w, Kp) and
 // R (2, X, w, Rp) (layouts above); sigp and t1 are scratch of 2 Kp Rp and
 // 2 X w Kp bf16.  cudaErrorInvalidValue if a size is below 1 or a bf16
@@ -111,19 +55,15 @@ extern "C" int pytdscf_keff_tc_c64(int device, const void* sig, const void* L,
                                    int w, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B < 1 || K < 1 || X < 1 || Rd < 1 || w < 1 || !aligned16(L) ||
-      !aligned16(R) || !aligned16(sigp) || !aligned16(t1))
+  if (B < 1 || K < 1 || X < 1 || Rd < 1 || w < 1 || !cgemm::aligned16(L) ||
+      !cgemm::aligned16(R) || !cgemm::aligned16(sigp) ||
+      !cgemm::aligned16(t1))
     return (int)cudaErrorInvalidValue;
   const int Kp = (K + 7) / 8 * 8, Rp = (Rd + 7) / 8 * 8;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* sp = static_cast<__nv_bfloat16*>(sigp);
   __nv_bfloat16* tp = static_cast<__nv_bfloat16*>(t1);
-  const size_t n = (size_t)Kp * Rp;
-  const size_t blocks = (n + 255) / 256;
-  sig_planes_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
-                      st>>>(static_cast<const float2*>(sig), sp, K, Rd, Kp,
-                            Rp);
-  err = cudaGetLastError();
+  err = cgemm::launch_planes<1>(sig, sp, K, Kp, Rd, Rp, st);
   if (err != cudaSuccess) return (int)err;
 
   // stage 1: T1t (X w, Kp) = R (X w, Rp) . sigp (Kp, Rp)^T
@@ -131,8 +71,8 @@ extern "C" int pytdscf_keff_tc_c64(int device, const void* sig, const void* L,
   const cgemm::Operand Rop{static_cast<const __nv_bfloat16*>(R), xw * Rp, Rp,
                            (int)xw};
   const cgemm::Operand Sop{sp, (long)Kp * Rp, Rp, Kp};
-  err = cgemm::launch<128, 128, 2, 4>(Rop, Sop, Rp,
-                                      T1Store{tp, xw * Kp, (int)xw, Kp}, st);
+  err = cgemm::launch<128, 128, 2, 4>(
+      Rop, Sop, Rp, cgemm::RowStore<1>{{tp, xw * Kp}, (int)xw, Kp, Kp}, st);
   if (err != cudaSuccess) return (int)err;
 
   // stage 2: out (B, X) = L (B, w Kp) . T1t (X, w Kp)^T
@@ -141,5 +81,6 @@ extern "C" int pytdscf_keff_tc_c64(int device, const void* sig, const void* L,
                            (long)B * depth, depth, B};
   const cgemm::Operand Top{tp, xw * Kp, depth, X};
   return (int)cgemm::launch<128, 64, 4, 2>(
-      Lop, Top, (int)depth, OutStore{static_cast<float2*>(out), B, X}, st);
+      Lop, Top, (int)depth, cgemm::OutStore{static_cast<float2*>(out), B, X},
+      st);
 }

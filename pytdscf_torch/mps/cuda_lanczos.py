@@ -50,6 +50,12 @@ MAX_SUBSTEPS = 65536
 #: Largest Krylov dimension the kernel takes (one warp holds the
 #: coefficient vector).
 MAX_KRYLOV = 32
+#: Largest working set the engine sends to the kernel (:func:`fits`): its
+#: channels and Krylov vectors, complex64, in bytes.  Every site of the
+#: 184-site chain takes about 3 MB; a site of M = l·d = 1024 with 8
+#: channels holds 67 MB of H_c alone and runs the einsum route instead (the
+#: JAX package's 60 MB gate, ``pallas_lanczos.fits``).
+MAX_BYTES = 60 * 2**20
 
 
 def heff_channels(L, W, R, fac=None):
@@ -66,6 +72,18 @@ def keff_channels(L, R, fac=None):
     """(H_a, Rt_a) of the K_eff matvec: H_a = L[:, a, :] (no MPO core)."""
     Lf = L if fac is None else L * fac.to(L.dtype)
     return Lf.permute(1, 0, 2).contiguous(), R.permute(1, 2, 0).contiguous()
+
+
+def fits(shape: tuple, nc: int, max_dim: int) -> bool:
+    """Whether the engine runs a Krylov vector of ``shape`` (M, r) over
+    ``nc`` channels through the kernel: the complex64 channels H_c
+    (nc, M, M) and Rt_c (nc, r, r), and the kernel's Krylov vectors and
+    scratch ((k_max + 3 + nc) of (M, r)), within :data:`MAX_BYTES`.  A
+    larger site runs ``integrator.krylov_expm`` over the chain einsums
+    (``tdvp._site_step``), and its channels are never built."""
+    M, r = shape
+    kmax = min(max_dim, M * r)
+    return 8 * (nc * (M * M + r * r) + (kmax + 3 + nc) * M * r) <= MAX_BYTES
 
 
 def substeps(bound: float) -> int:

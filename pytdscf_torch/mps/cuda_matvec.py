@@ -1,26 +1,27 @@
 """Relaxed-Krylov H_eff and K_eff matvecs as CUDA kernels.
 
 Replaces the JAX package's ``mps/pallas_matvec.py`` (``heff_pallas``,
-``keff_pallas``).  The kernels are ``csrc/matvec_lo.cu`` (H_eff) and
-``csrc/keff_tc.cu`` (K_eff); their plain versions are
+``keff_pallas``).  The kernels are ``csrc/chain_tc.cu`` (H_eff, in its
+one-pass mode) and ``csrc/keff_tc.cu`` (K_eff); their plain versions are
 ``kernels.heff_apply_lo`` / ``keff_apply_lo``, which serve every CPU
 tensor.  Both round at the same points: ψ (or σ) and the blocks to bf16
 (round to nearest even), the chain intermediate T1 (and T2) to bf16 after
-float32 accumulation, the output accumulated in float32.  On the card the
-H_eff kernel keeps T1 and T2 in shared memory and sums its k tiles in a
-fixed order; the K_eff kernel runs the chain as two tensor-core GEMMs with
-T1 in device memory (L2) and splits no sum (see the source notes).  Either
-repeats its result bit for bit.
+float32 accumulation, the output accumulated in float32.  On the card each
+runs the chain as tensor-core GEMMs (three for H_eff, two for K_eff) with
+the intermediates in device memory, each GEMM over its whole depth with no
+split of a sum, so a launch repeats its result bit for bit (see the source
+notes).  Every shape is taken.
 
 The operands are built once per site, outside the Krylov loop
-(:func:`heff_operands`, :func:`keff_operands`), in the layout each kernel
-reads: for H_eff the blocks as bf16 (re, im) pairs, ``L (b, a, k, 2)``,
-``W (a, i, j, c, 2)``, ``R (x, c, r, 2)``; for K_eff as bf16 planes,
-``L (2, b, a, kp)`` and ``R (2, x, a, rp)``, the depth axes zero-padded to
-a multiple of 8 (:class:`KeffOps`).  :func:`plain_planes` gives the plain
-version's (re, im) operands from either.  The real factor that restores
-the log-normalised blocks is applied to the output by the caller
-(``kernels.make_hmatvec_lo``), as in the JAX package.
+(:func:`heff_operands`, :func:`keff_operands`), in the layout the kernels
+read: bf16 planes (re, im) first, each depth axis zero-padded to a multiple
+of 8 (:func:`bf16_planes`): for H_eff ``L (2, b, a, kp)``, ``W (2, a, i,
+pad8(j·c))`` (rows (a, i), depth (j, c)) and ``R (2, x, c, rp)``
+(:class:`HeffOps`); for K_eff ``L`` and ``R`` alike (:class:`KeffOps`).
+:func:`plain_planes` gives the plain version's (re, im) operands from
+either.  The real factor that restores the log-normalised blocks is applied
+to the output by the caller (``kernels.make_hmatvec_lo``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -32,18 +33,17 @@ import torch
 from pytdscf_torch import _cuda
 from pytdscf_torch.mps import kernels as K
 
-#: Largest d·w_r of an H_eff site the kernel takes (one T1 column is held
-#: in registers) and largest d, w of an H_eff site (a T1 tile has TILE rows
-#: of (k, j) and TILE columns of (x, c)).
-MAX_DW = 32
-TILE = 128
-MAX_DIM = TILE
-
 
 class HeffOps(NamedTuple):
-    L: torch.Tensor  # (b, a, k, 2) bf16
-    W: torch.Tensor  # (a, i, j, c, 2) bf16
-    R: torch.Tensor  # (x, c, r, 2) bf16
+    """The H_eff kernel's operands: bf16 planes (re, im) first, the depth
+    axes zero-padded to :func:`pad8` of their lengths (``k``, ``r`` and
+    j·c = d·w_r for W, whose rows are (a, i))."""
+
+    L: torch.Tensor  # (2, b, a, pad8(k)) bf16
+    W: torch.Tensor  # (2, a, i, pad8(j·c)) bf16
+    R: torch.Tensor  # (2, x, c, pad8(r)) bf16
+    k: int
+    r: int
 
 
 class KeffOps(NamedTuple):
@@ -62,98 +62,115 @@ def pad8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def _bf16_pairs(x: torch.Tensor) -> torch.Tensor:
-    return torch.view_as_real(x).to(torch.bfloat16).contiguous()
-
-
-def _bf16_planes(x: torch.Tensor) -> torch.Tensor:
-    """(2, *x.shape) bf16 planes (re, im) of x, the last axis zero-padded
-    to a multiple of 8."""
+def bf16_planes(x: torch.Tensor, passes: int = 1) -> torch.Tensor:
+    """(P, *x.shape) bf16 planes of x, the last axis zero-padded to a
+    multiple of 8: P = 2, (re, im) rounded to nearest even (``passes=1``),
+    or P = 4, (re_hi, im_hi, re_lo, im_lo) of ``kernels.hilo``
+    (``passes=3``)."""
     *lead, n = x.shape
-    out = torch.zeros((2, *lead, pad8(n)), dtype=torch.bfloat16,
+    split = K.hilo(x) if passes == 3 else torch.view_as_real(x).to(torch.bfloat16)
+    out = torch.zeros((split.shape[-1], *lead, pad8(n)), dtype=torch.bfloat16,
                       device=x.device)
-    out[..., :n] = torch.view_as_real(x).to(torch.bfloat16).movedim(-1, 0)
+    out[..., :n] = split.movedim(-1, 0)
     return out
 
 
 def heff_operands(L, W, R) -> HeffOps:
-    """bf16 (re, im) operands of the H_eff matvec, built once per site."""
-    return HeffOps(_bf16_pairs(L), _bf16_pairs(W), _bf16_pairs(R))
+    """bf16 operands of the H_eff matvec (:class:`HeffOps`), built once per
+    site."""
+    wl, d, _, wr = W.shape
+    return HeffOps(bf16_planes(L), bf16_planes(W.reshape(wl, d, d * wr)),
+                   bf16_planes(R), L.shape[-1], R.shape[-1])
 
 
 def keff_operands(L, R) -> KeffOps:
     """bf16 operands of the K_eff matvec (:class:`KeffOps`), built once per
     site."""
-    return KeffOps(_bf16_planes(L), _bf16_planes(R), L.shape[-1],
-                   R.shape[-1])
+    return KeffOps(bf16_planes(L), bf16_planes(R), L.shape[-1], R.shape[-1])
 
 
 def plain_planes(ops: HeffOps | KeffOps) -> tuple:
     """The plain version's operands, ((re, im) of L, [of W,] of R) as
     views of ``ops``: the arguments of ``kernels.heff_apply_lo`` /
     ``keff_apply_lo`` before the vector."""
+    L, R = ops.L[..., :ops.k], ops.R[..., :ops.r]
     if isinstance(ops, KeffOps):
-        return ((ops.L[0, ..., :ops.k], ops.L[1, ..., :ops.k]),
-                (ops.R[0, ..., :ops.r], ops.R[1, ..., :ops.r]))
-    return tuple(t.unbind(-1) for t in ops)
+        return (L[0], L[1]), (R[0], R[1])
+    _, wl, d, _ = ops.W.shape
+    wr = ops.R.shape[2]
+    W = ops.W[..., :d * wr].reshape(2, wl, d, d, wr)
+    return (L[0], L[1]), (W[0], W[1]), (R[0], R[1])
 
 
-def _tiles(d: int, w: int) -> tuple[int, int]:
-    """(Tk, Tx): the k rows and x columns of one block's tile, so that T1
-    and T2 hold at most TILE × TILE entries (d, w ≤ TILE)."""
-    return TILE // d, TILE // w
+def chain_scratch(planes: int, k: int, x: int, r: int, din: int, dout: int,
+                  wl: int, wr: int, device) -> tuple:
+    """(psip, t1, t2) scratch of the staged chain kernel in H_eff roles
+    (``csrc/chain_tc.cu``): ψ as bf16 planes (P, k·din, pad8(r)), T1
+    (P, x, k, pad8(din·wr)) and T2 (P, dout, x, wl, pad8(k)).  The kernel
+    writes every entry but the depth padding of T1 and T2, which the next
+    GEMM reads: a padded one is allocated zeroed."""
+
+    def alloc(shape, padded):
+        return (torch.zeros if padded else torch.empty)(
+            (planes, *shape), dtype=torch.bfloat16, device=device)
+
+    dw = din * wr
+    return (alloc((k * din, pad8(r)), False),
+            alloc((x, k, pad8(dw)), pad8(dw) > dw),
+            alloc((dout, x, wl, pad8(k)), pad8(k) > k))
 
 
-def _check(name: str, t: torch.Tensor, dtype, device) -> None:
+def check_operand(name: str, t: torch.Tensor, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``,
+    16-byte aligned if it is bf16 (the kernels' 16-byte copies)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the vector on {device}")
     if t.dtype != dtype:
-        raise TypeError(f"the CUDA matvec takes {dtype} {name}, got {t.dtype}")
+        raise TypeError(f"the CUDA kernel takes {dtype} {name}, got {t.dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"the CUDA matvec takes a contiguous {name}")
+        raise ValueError(f"the CUDA kernel takes a contiguous {name}")
+    if dtype == torch.bfloat16 and t.data_ptr() % 16:
+        raise ValueError(f"the CUDA kernel takes a 16-byte aligned {name}")
 
 
 def heff_lo(ops: HeffOps, psi: torch.Tensor) -> torch.Tensor:
     """σ[b, i, x] of the relaxed H_eff matvec on ψ (k, j, r).
 
-    A CUDA tensor goes through the kernel (complex64 ψ, bf16 operands, all
-    contiguous, d·w_r ≤ 32, or this raises); a CPU tensor through
-    ``kernels.heff_apply_lo``.  ``heff_lo.launches`` counts kernel
-    launches, ``heff_lo.plain_calls`` the CPU calls.
+    A CUDA tensor goes through the kernel (complex64 ψ, the bf16 operands
+    of :func:`heff_operands`, all contiguous, or this raises); a CPU tensor
+    through ``kernels.heff_apply_lo``.  ``heff_lo.launches`` counts kernel
+    launches (one per call: its planes kernel and three GEMMs),
+    ``heff_lo.plain_calls`` the CPU calls.
     """
-    if psi.ndim != 3 or ops.L.ndim != 4 or ops.W.ndim != 5 or ops.R.ndim != 4:
+    if psi.ndim != 3 or ops.L.ndim != 4 or ops.W.ndim != 4 or ops.R.ndim != 4:
         raise ValueError("heff_lo takes ψ (k, j, r) and operands from "
                          "heff_operands")
     k, d, r = psi.shape
-    B, wl, kL, _ = ops.L.shape
-    X, wr, rR, _ = ops.R.shape
-    if kL != k or rR != r or tuple(ops.W.shape[:4]) != (wl, d, d, wr):
+    _, B, wl, kp = ops.L.shape
+    _, X, wr, rp = ops.R.shape
+    if ((k, r) != (ops.k, ops.r) or (kp, rp) != (pad8(k), pad8(r))
+            or tuple(ops.W.shape) != (2, wl, d, pad8(d * wr))):
         raise ValueError(
             f"operand shapes L {tuple(ops.L.shape)}, W {tuple(ops.W.shape)}, "
-            f"R {tuple(ops.R.shape)} do not fit ψ {tuple(psi.shape)}"
+            f"R {tuple(ops.R.shape)} (k={ops.k}, r={ops.r}) do not fit ψ "
+            f"{tuple(psi.shape)}"
         )
     if psi.device.type == "cpu":
         heff_lo.plain_calls += 1
         return K.heff_apply_lo(*plain_planes(ops), psi)
     if psi.device.type != "cuda":
         raise ValueError(f"heff_lo: no kernel for device {psi.device}")
-    _check("ψ", psi, torch.complex64, psi.device)
-    for name, t in zip(("L", "W", "R"), ops):
-        _check(name, t, torch.bfloat16, psi.device)
-    if d * wr > MAX_DW or max(d, wl, wr) > MAX_DIM:
-        raise ValueError(
-            f"heff_lo: the kernel takes d·w_r <= {MAX_DW} and d, w <= "
-            f"{MAX_DIM}, got d={d}, w=({wl}, {wr})"
-        )
-    tk, tx = _tiles(d, max(wl, wr))
-    # one (B, d, X) slot per k tile, summed in order by the second kernel
-    part = torch.empty((-(-k // tk), B, d, X), dtype=torch.complex64,
-                       device=psi.device)
-    out = torch.empty((B, d, X), dtype=torch.complex64, device=psi.device)
-    code = _cuda.load().pytdscf_heff_lo_c64(
-        psi.device.index, psi.data_ptr(), ops.L.data_ptr(), ops.W.data_ptr(),
-        ops.R.data_ptr(), part.data_ptr(), out.data_ptr(), B, k, X, r, d, wl,
-        wr, tk, tx, torch.cuda.current_stream(psi.device).cuda_stream,
+    dev = psi.device
+    check_operand("ψ", psi, torch.complex64, dev)
+    for name in ("L", "W", "R"):
+        check_operand(name, getattr(ops, name), torch.bfloat16, dev)
+    psip, t1, t2 = chain_scratch(2, k, X, r, d, d, wl, wr, dev)
+    out = torch.empty((B, d, X), dtype=torch.complex64, device=dev)
+    code = _cuda.load().pytdscf_heff_tc_c64(
+        dev.index, psi.data_ptr(), ops.L.data_ptr(), ops.W.data_ptr(),
+        ops.R.data_ptr(), psip.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+        out.data_ptr(), B, k, X, r, d, wl, wr,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(code, "heff_lo")
     heff_lo.launches += 1
@@ -185,12 +202,10 @@ def keff_lo(ops: KeffOps, sig: torch.Tensor) -> torch.Tensor:
         return K.keff_apply_lo(*plain_planes(ops), sig)
     if sig.device.type != "cuda":
         raise ValueError(f"keff_lo: no kernel for device {sig.device}")
-    _check("σ", sig, torch.complex64, sig.device)
-    for name, t in (("L", ops.L), ("R", ops.R)):
-        _check(name, t, torch.bfloat16, sig.device)
-        if t.data_ptr() % 16:
-            raise ValueError(f"the CUDA keff_lo takes a 16-byte aligned {name}")
     dev = sig.device
+    check_operand("σ", sig, torch.complex64, dev)
+    for name in ("L", "R"):
+        check_operand(name, getattr(ops, name), torch.bfloat16, dev)
     # scratch: σ as bf16 planes, and T1 in the layout stage 2 reads
     sigp = torch.empty((2, kp, rp), dtype=torch.bfloat16, device=dev)
     t1 = torch.empty((2, X, w, kp), dtype=torch.bfloat16, device=dev)

@@ -243,7 +243,7 @@ def _hl_planes(t: torch.Tensor):
 def chain3_plain(psi, L, W, R, passes: int = 3) -> torch.Tensor:
     """bf16x3 chain out[b,i,x] = Σ L[b,a,k]·W[a,i,j,c]·R[x,c,r]·ψ[k,j,r]
     on :func:`hilo` operands (complex64 result): the plain version of
-    ``csrc/chain_bf16x3.cu`` and the counterpart of the JAX package's
+    ``csrc/chain_tc.cu`` at bf16x3 and the counterpart of the JAX package's
     ``pallas_renorm._renorm3_kernel`` in its H_eff roles, rounding at its
     points: split operands, T1 and T2 accumulated in float32 and split by
     truncation, three bf16 products per real product.  ``passes=1`` drops

@@ -15,10 +15,12 @@ each site:
 
 Two Krylov routes.  Lanczos (Hermitian H_eff, the small-bond chains): the
 whole exponential is one ``cuda_lanczos.lanczos_expm`` call, the kernel on
-CUDA; with ``Config.fused_site`` the five steps of a non-last site are one
-``cuda_site.site_step_fused`` call where its shapes fit.  Arnoldi (any
-H_eff, the Liouville MPDO): ``integrator.krylov_expm`` drives the exact
-float32 einsum matvecs (or, at ``matvec_precision="high"``, the bf16x3
+CUDA, where its channels fit (``cuda_lanczos.fits``); with
+``Config.fused_site`` the five steps of a non-last site are one
+``cuda_site.site_step_fused`` call where its shapes fit.  A Lanczos site
+too large for the kernel, and every Arnoldi site (any H_eff, the Liouville
+MPDO), run ``integrator.krylov_expm`` over the exact float32 einsum
+matvecs (or, at ``matvec_precision="high"``, the bf16x3
 ``cuda_renorm.heff_hi``/``keff_hi`` kernel) and, with
 ``krylov_relaxed``, the single-bf16-pass ``cuda_matvec`` kernels for
 iterations ``>= relax_after``.  At ``env_precision="high"`` the in-sweep
@@ -43,11 +45,7 @@ from pytdscf_torch.config import Config
 from pytdscf_torch.mps import cuda_renorm as CR
 from pytdscf_torch.mps import cuda_site as CS
 from pytdscf_torch.mps import kernels as K
-from pytdscf_torch.mps.cuda_lanczos import (
-    heff_channels,
-    keff_channels,
-    lanczos_expm,
-)
+from pytdscf_torch.mps import cuda_lanczos as CL
 from pytdscf_torch.mps.integrator import krylov_expm
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
@@ -61,8 +59,10 @@ def _normalize_block(B):
     return B / nrm, torch.log(nrm)
 
 
-def _arnoldi_expm(v, scale, fac, cfg, L, R, W=None):
-    """exp(scale·H)·v by Arnoldi for H_eff (``W`` given) or K_eff.
+def _einsum_expm(v, scale, fac, cfg, L, R, W=None):
+    """exp(scale·H)·v by ``integrator.krylov_expm`` for H_eff (``W``
+    given) or K_eff: Arnoldi, or Lanczos with ``cfg.integrator ==
+    "lanczos"`` (a site too large for the Lanczos kernel).
 
     Returns ``(v', status, relaxed)``: ``status = [k_used, bad]`` (int32,
     on v's device) and the number of relaxed matvecs that ran.  The exact
@@ -87,7 +87,8 @@ def _arnoldi_expm(v, scale, fac, cfg, L, R, W=None):
 
     out, k_used, bad = krylov_expm(
         mv, v.reshape(-1), scale, cfg.thresh_exp, cfg.max_krylov,
-        cfg.conserve_norm, arnoldi=True, return_iterations=True,
+        cfg.conserve_norm, arnoldi=cfg.integrator == "arnoldi",
+        return_iterations=True,
         matvec_lo=mv_lo, relax_after=cfg.relax_after,
     )
     status = torch.tensor([k_used, int(bad)], dtype=torch.int32,
@@ -124,12 +125,12 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
         return site_out, psi_next, (block, log_new), [st[:2], st[2:]], 0
     hfac = torch.exp(lL + lR)
     relaxed = 0
-    if arnoldi:
-        psi_new, st_h, n = _arnoldi_expm(psi, scale, hfac, cfg, L, R, W)
+    if arnoldi or not CL.fits((l * d, r), W.shape[-1], cfg.max_krylov):
+        psi_new, st_h, n = _einsum_expm(psi, scale, hfac, cfg, L, R, W)
         relaxed += n
     else:
-        ch = heff_channels(L, W, R, hfac)
-        out, st_h = lanczos_expm(
+        ch = CL.heff_channels(L, W, R, hfac)
+        out, st_h = CL.lanczos_expm(
             ch, psi.reshape(l * d, r).contiguous(), scale, cfg.thresh_exp,
             cfg.max_krylov, conserve,
         )
@@ -151,12 +152,12 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
     log_new = l_sys + dl
     kL, kR = (block, R) if forward else (L, block)
     kfac = torch.exp(log_new + l_env)
-    if arnoldi:
-        sig_new, st_k, n = _arnoldi_expm(sig, -scale, kfac, cfg, kL, kR)
+    if arnoldi or not CL.fits(sig.shape, kR.shape[1], cfg.max_krylov):
+        sig_new, st_k, n = _einsum_expm(sig, -scale, kfac, cfg, kL, kR)
         relaxed += n
     else:
-        kch = keff_channels(kL, kR, kfac)
-        sig_new, st_k = lanczos_expm(
+        kch = CL.keff_channels(kL, kR, kfac)
+        sig_new, st_k = CL.lanczos_expm(
             kch, sig.contiguous(), -scale, cfg.thresh_exp, cfg.max_krylov,
             conserve,
         )

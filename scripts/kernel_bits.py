@@ -5,18 +5,20 @@ Runs the kernels of the ``pytdscf_torch`` package found under ROOT on
 fixed inputs (seeded with numpy) through their wrappers and saves every
 output: the Lanczos kernel at the 184-site chain's shapes (the H step at
 (240, 30) with 4 channels, the K step at (30, 30)), the MGS QR at (240, 30)
-full rank and rank deficient and at (1024, 64), and the relaxed matvecs
-``heff_lo`` and ``keff_lo`` at the χ=1024 radical pair's bulk shape and a
-ragged one.  ``compare`` exits 1 unless two such files are equal bit for
-bit, except for the outputs named by ``--expect-differ`` (comma-separated
-prefixes of output names), which may differ.  On a machine with an NVIDIA
+full rank and rank deficient and at (1024, 64), the relaxed matvecs
+``heff_lo`` and ``keff_lo`` and the bf16x3 chain in its four mappings
+(``chain_left``, ``chain_right``, ``chain_heff``, ``chain_keff``) at the
+χ=1024 radical pair's bulk shape and a ragged one.  ``compare`` exits 1
+unless two such files are equal bit for bit, except for the outputs named
+by ``--expect-differ`` (comma-separated prefixes of output names), which
+may differ.  On a machine with an NVIDIA
 GPU and nvcc, e.g. for a checkout of the parent commit unpacked under
 ``parent/``:
 
     python3 scripts/kernel_bits.py dump parent out/parent.npz
     python3 scripts/kernel_bits.py dump . out/this.npz
     python3 scripts/kernel_bits.py compare out/parent.npz out/this.npz \
-        --expect-differ qr_large,keff
+        --expect-differ heff,chain
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ def dump(root: str, path: str) -> None:
     from pytdscf_torch.mps import cuda_lanczos as CL
     from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_qr as CQ
+    from pytdscf_torch.mps import cuda_renorm as CR
 
     def t(a):
         return torch.as_tensor(a).to("cuda", torch.complex64).contiguous()
@@ -73,6 +76,21 @@ def dump(root: str, path: str) -> None:
         res[f"heff_{tag}"] = out.cpu().numpy()
         out = CM.keff_lo(CM.keff_operands(t(L), t(R)), t(_cx(rng, k, x)))
         res[f"keff_{tag}"] = out.cpu().numpy()
+    # (b, k, p, o, w, d): the bulk environment transfer, and ragged bonds
+    for tag, (b, k, p, o, w, d) in (("bulk", (1024, 1024, 1024, 1024, 8, 4)),
+                                    ("ragged", (130, 70, 33, 45, 7, 4))):
+        blk, W = t(_cx(rng, b, w, k)), t(_cx(rng, w, d, d, w))
+        out = CR.renorm_left_hi(blk, t(_cx(rng, b, d, o)), W,
+                                t(_cx(rng, k, d, p)))
+        res[f"chain_left_{tag}"] = out.cpu().numpy()
+        out = CR.renorm_right_hi(blk, t(_cx(rng, o, d, b)), W,
+                                 t(_cx(rng, p, d, k)))
+        res[f"chain_right_{tag}"] = out.cpu().numpy()
+        L, R = t(_cx(rng, b, w, k)), t(_cx(rng, p, w, o))
+        out = CR.heff_hi(CR.heff_operands(L, W, R), t(_cx(rng, k, d, o)))
+        res[f"chain_heff_{tag}"] = out.cpu().numpy()
+        out = CR.keff_hi(CR.keff_operands(L, R), t(_cx(rng, k, o)))
+        res[f"chain_keff_{tag}"] = out.cpu().numpy()
     torch.cuda.synchronize()
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **res)

@@ -165,6 +165,119 @@ def test_multi_state_and_gates_raise():
         engine.propagate(DT, kraus_op=object())
 
 
+def _hermitian_site(seed, chi=8, d=4, w=3):
+    """A Hermitian H_eff site at bond χ: L, R (χ, w, χ) and W (w, d, d, w)
+    each Hermitian in their bra/ket pair, ψ (χ, d, χ) and the next core."""
+    rng = np.random.default_rng(seed)
+
+    def cx(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    L, R, W = cx(chi, w, chi), cx(chi, w, chi), cx(w, d, d, w)
+    L = 0.5 * (L + L.transpose(2, 1, 0).conj())
+    R = 0.5 * (R + R.transpose(2, 1, 0).conj())
+    W = 0.5 * (W + W.transpose(0, 2, 1, 3).conj())
+    # unit-norm blocks, as the engine keeps them: ‖H_eff‖ of order 1
+    L, R, W = (a / np.linalg.norm(a) for a in (L, R, W))
+    psi = cx(chi, d, chi)
+    return L, W, R, psi / np.linalg.norm(psi), cx(chi, d, chi)
+
+
+SCALE = -0.5j  # exp(−i·H·0.5) at ‖H_eff‖ of order 1
+
+
+def _site_args(L, W, R, psi, nxt):
+    t = [torch.as_tensor(a) for a in (psi, nxt, L, W, R)]
+    zero = torch.zeros((), dtype=torch.float64)
+    return (*t, SCALE, zero, zero + 0.3)
+
+
+def _both_routes(monkeypatch, args, cfg, counter):
+    """``_site_step`` of a Lanczos site through the kernel's route, then
+    again with the gate's byte limit at 0.  Checks that the second run
+    built no channels, left the Lanczos kernel's ``counter`` (its launches
+    or its plain calls) alone and ran ``krylov_expm``'s Lanczos for both
+    exponentials; returns (einsum route, kernel route)."""
+    from pytdscf_torch.mps import tdvp
+
+    n0 = getattr(CL.lanczos_expm, counter)
+    want = tdvp._site_step(*args, cfg=cfg, forward=True, last=False)
+    assert getattr(CL.lanczos_expm, counter) == n0 + 2
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(kw["arnoldi"])
+        return krylov_expm(*a, **kw)
+
+    def refused(*a, **kw):
+        raise AssertionError("channels built for a site that does not use them")
+
+    krylov_expm = tdvp.krylov_expm
+    monkeypatch.setattr(tdvp, "krylov_expm", counted)
+    monkeypatch.setattr(CL, "heff_channels", refused)
+    monkeypatch.setattr(CL, "keff_channels", refused)
+    monkeypatch.setattr(CL, "MAX_BYTES", 0)
+    got = tdvp._site_step(*args, cfg=cfg, forward=True, last=False)
+    assert getattr(CL.lanczos_expm, counter) == n0 + 2
+    assert calls == [False, False]  # Lanczos, H then K
+    return got, want
+
+
+def test_large_lanczos_site_takes_the_einsum_route(monkeypatch):
+    """A Lanczos site whose channels exceed ``cuda_lanczos.MAX_BYTES`` runs
+    ``krylov_expm`` over the chain einsums for both exponentials, builds no
+    channels and never calls the kernel's route; its update agrees with the
+    kernel route's plain version (eigh against Taylor substeps, ~1e-11)."""
+    got, want = _both_routes(monkeypatch, _site_args(*_hermitian_site(21)),
+                             Config(thresh_exp=1e-10), "plain_calls")
+    for a, b in ((got[0], want[0]), (got[1], want[1]), (got[2][0], want[2][0])):
+        assert float(torch.max(torch.abs(a - b))) < 1e-10
+    assert abs(float(got[2][1] - want[2][1])) < 1e-10
+    assert [s.tolist() for s in got[3]] == [s.tolist() for s in want[3]]
+
+
+def test_einsum_route_matches_jax_krylov(monkeypatch):
+    """The einsum route of a large Lanczos site against the JAX package's
+    ``krylov_expm`` (Lanczos) over its ``heff_apply``, on the same numpy
+    inputs, in complex128."""
+    import jax.numpy as jnp
+
+    import pytdscf_tpu.mps.kernels as JK
+    from pytdscf_tpu.mps.integrator import krylov_expm as jax_krylov
+
+    from pytdscf_torch.mps import tdvp
+
+    L, W, R, psi, nxt = _hermitian_site(22)
+    args = _site_args(L, W, R, psi, nxt)
+    cfg = Config(thresh_exp=1e-10)
+    monkeypatch.setattr(CL, "MAX_BYTES", 0)
+    got, _, _, (st,), _ = tdvp._site_step(*args, cfg=cfg, forward=True, last=True)
+    fac = float(np.exp(0.3))
+    Lj, Wj, Rj = (jnp.asarray(a) for a in (L, W, R))
+
+    def mv(v):
+        return (JK.heff_apply(Lj, Wj, Rj, v.reshape(psi.shape)) * fac).reshape(-1)
+
+    want, k_used, bad = jax_krylov(mv, jnp.asarray(psi.reshape(-1)), SCALE,
+                                   cfg.thresh_exp, cfg.max_krylov, cfg.conserve_norm,
+                                   arnoldi=False, return_iterations=True)
+    assert st.tolist() == [int(k_used), int(bad)]
+    assert np.max(np.abs(got.numpy().reshape(-1) - np.asarray(want))) < 1e-10
+
+
+def test_lanczos_gate_keeps_the_chain_on_the_kernel():
+    """Every site of the 184-site chain (D = 30, Fock dimension 8, the
+    exciton's 3, fused MPO width 4) keeps the kernel at the chain's and the
+    Simulator's max_krylov; a site the JAX package's 60 MB gate refuses, M
+    = l·d = 1024 with 8 channels, does not."""
+    for M, r in ((240, 30), (90, 30), (8, 8), (30, 8)):
+        for kmax in (10, 20):
+            assert CL.fits((M, r), 4, kmax)
+    assert CL.fits((30, 30), 4, 20)  # a K step
+    assert not CL.fits((1024, 256), 8, 7)
+    assert not CL.fits((4096, 1024), 8, 10)
+
+
 # ------------------------------------------------------------ on the card
 @pytest.mark.cuda
 def test_slice_on_card_tracks_cpu(cuda):
@@ -185,3 +298,18 @@ def test_slice_on_card_tracks_cpu(cuda):
                                 Config(), "cpu")
     assert cpu.distance(mirror) < 5e-5
     assert abs(cpu.expectation().real - card.expectation().real) < 1e-6
+
+
+@pytest.mark.cuda
+def test_large_lanczos_site_takes_the_einsum_route_on_card(cuda, monkeypatch):
+    """The einsum route of a site past the gate on the card, in complex64:
+    no Lanczos kernel launch, and the update within float32 scale of the
+    kernel route's (both stop at thresh 1e-6, so their Krylov dimensions
+    may differ by one: 1e-4 relative)."""
+    psi, nxt, L, W, R, scale, lL, lR = _site_args(*_hermitian_site(23, chi=16))
+    args = (*(t.to(cuda, torch.complex64) for t in (psi, nxt, L, W, R)), scale,
+            lL.to(cuda, torch.float32), lR.to(cuda, torch.float32))
+    got, want = _both_routes(monkeypatch, args, Config(thresh_exp=1e-6), "launches")
+    for a, b in ((got[0], want[0]), (got[1], want[1]), (got[2][0], want[2][0])):
+        assert a.is_cuda and bool(torch.isfinite(a).all())
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-4

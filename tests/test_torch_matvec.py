@@ -14,13 +14,12 @@ moves a T1/T2 entry across a bf16 rounding boundary (one bf16 ulp,
 2^-8 relative).  Those rare flips leave the outputs 3e-8 to 4e-5 apart
 relative to the output norm (measured on the CPU at the shapes below and
 at (256, 256, 256, 8, 4)); the bar against JAX is 5e-4.  On the card each
-kernel sums over χ=1024 at the bulk site in its own fixed order (k tiles
-one after the other for H_eff, the tensor cores' order along the whole
-depth for K_eff).  On an H100 it reads 1.6e-7 to 5.8e-7 against
-plain on the χ=1024 chain's own operands (``chip_smoke.py`` holds those
-to 1e-4), and up to 9.7e-5 on the random operands below (the largest at
-the (1024, 1024, 1024, 8, 4) bulk shape, where many T1 entries are long
-unstructured sums near a bf16 rounding boundary).  One bf16 rounding more
+kernel sums in the tensor cores' fixed order along the whole depth of
+each GEMM.  On an H100 it reads 1.7e-7 to 9.2e-6 against plain on the
+χ=1024 chain's own operands (``chip_smoke.py`` holds those to 1e-4), and
+up to 1.1e-4 on random operands at the χ=1024 bulk with d = 16 (long
+unstructured sums put many T1 entries near a bf16 rounding boundary).
+One bf16 rounding more
 or less (the output rounded to bf16, or T1 kept in float32) moves the
 output by 1.4e-3 to 2.6e-3, so the bar between kernel and plain on random
 operands is 3e-4, about 3× above the largest sound reading and 5× below
@@ -190,6 +189,112 @@ def test_keff_kernel_layout_matches_plain(b, k, x, w):
     assert torch.equal(got, want)
 
 
+def _gemm(A, B, passes):
+    """C[m, n] = Σ_d A[m, d] B[n, d] on planes (P, M, D) and (P, N, D):
+    the exact bf16 products of the kernel's mma (four real ones per complex
+    product, three passes each at bf16x3), summed in float32."""
+    A, B = A.float(), B.float()
+    if passes == 1:
+        (ar, ai), (br, bi) = A, B
+        return ar @ br.T - ai @ bi.T, ar @ bi.T + ai @ br.T
+
+    def dot3(x, xl, y, yl):
+        return x @ y.T + x @ yl.T + xl @ y.T
+
+    (arh, aih, arl, ail), (brh, bih, brl, bil) = A, B
+    return (dot3(arh, arl, brh, brl) - dot3(aih, ail, bih, bil),
+            dot3(arh, arl, bih, bil) + dot3(aih, ail, brh, brl))
+
+
+def _store(re, im, passes):
+    """The epilogue's planes of float32 (re, im): rounded to bf16 (one
+    pass) or split by truncation into (re_hi, im_hi, re_lo, im_lo)."""
+    if passes == 1:
+        return torch.stack([re, im]).to(torch.bfloat16)
+    (rh, rl), (ih, il) = TK._split_trunc(re), TK._split_trunc(im)
+    return torch.stack([rh, ih, rl, il]).to(torch.bfloat16)
+
+
+def _scatter(buf, off, vals):
+    """buf.view(P, -1)[:, off] = vals, after checking that the offsets are
+    distinct (the epilogue writes each entry once)."""
+    flat = off.reshape(-1)
+    assert flat.unique().numel() == flat.numel()
+    buf.view(buf.shape[0], -1)[:, flat] = vals.reshape(vals.shape[0], -1)
+
+
+def staged_chain(psi, ops, passes):
+    """The staged chain kernel (``csrc/chain_tc.cu``) in plain PyTorch,
+    through its layouts: ψ (k, j, r) as the planes that
+    ``cgemm::planes_kernel`` makes (``bf16_planes``); GEMM 1 scattered into T1
+    (P, x, k, pad8(j·c)), the W mix into T2 (P, i, x, a, pad8(k)), GEMM 3
+    into out (b, i, x); for K_eff (``ops.W is None``) GEMM 1 transposed into
+    T2 (P, x, a, pad8(k)) and GEMM 3.  The scratch comes from
+    ``cuda_matvec.chain_scratch`` (the wrapper's own), and its depth
+    padding must come out zero.  Returns out (complex)."""
+    k, din, r = psi.shape
+    P, B, wl, kp = ops.L.shape
+    _, X, wr, rp = ops.R.shape
+    if ops.W is None:  # K_eff at bf16x3
+        sigp = torch.zeros((P, kp, rp), dtype=torch.bfloat16)
+        sigp[:, :k] = CM.bf16_planes(psi[:, 0, :], passes)
+        t2 = _store(*_gemm(ops.R.reshape(P, X * wr, rp), sigp, passes), passes)
+        out = _gemm(ops.L.reshape(P, B, wl * kp), t2.reshape(P, X, wr * kp), passes)
+        return torch.complex(*out).reshape(B, 1, X)
+    dout, dwp = ops.W.shape[2], ops.W.shape[3]
+    psip, t1, t2 = CM.chain_scratch(P, k, X, r, din, dout, wl, wr, "cpu")
+    psip[:] = CM.bf16_planes(psi.reshape(k * din, r), passes)
+    # GEMM 1: C[(k,j), (x,c)] -> T1[(x,k), (j,c)]
+    c1 = _gemm(psip, ops.R.reshape(P, X * wr, rp), passes)
+    kk, j, x, c = torch.meshgrid(torch.arange(k), torch.arange(din),
+                                 torch.arange(X), torch.arange(wr), indexing="ij")
+    _scatter(t1, (x * k + kk) * dwp + j * wr + c, _store(*c1, passes))
+    assert not t1[..., din * wr:].any()
+    # GEMM 2: C[(a,i), (x,k)] -> T2[(i,x), (a,k)]
+    c2 = _gemm(ops.W.reshape(P, wl * dout, dwp), t1.reshape(P, X * k, dwp), passes)
+    a, i, x, kk = torch.meshgrid(torch.arange(wl), torch.arange(dout),
+                                 torch.arange(X), torch.arange(k), indexing="ij")
+    _scatter(t2, (i * X + x) * (wl * kp) + a * kp + kk, _store(*c2, passes))
+    assert not t2[..., k:].any()
+    # GEMM 3: out[b, (i,x)] = Σ_(a,k) L[b, (a,k)] T2[(i,x), (a,k)]
+    out = _gemm(ops.L.reshape(P, B, wl * kp), t2.reshape(P, dout * X, wl * kp), passes)
+    return torch.complex(*out).reshape(B, dout, X)
+
+
+def small_ints(rng, hi, *shape):
+    """Complex small nonzero integers (exact in bf16): every float32 sum of
+    their products is exact in any order, so the bf16 roundings and splits
+    of the chain intermediates are the only roundings."""
+    def part():
+        return rng.integers(1, hi + 1, shape) * rng.choice([-1, 1], shape)
+
+    return T(part() + 1j * part())
+
+
+@pytest.mark.parametrize("b,k,x,r,wl,d,wr", [
+    (13, 10, 11, 9, 3, 3, 5),  # ragged: every depth padded (15, 10, 9)
+    (1, 1, 4, 4, 1, 4, 7),  # the chain's edge: B = K = 1, w_l = 1
+    (12, 10, 14, 6, 8, 9, 8),  # a spin-1 nucleus: d = 9, d·w_r = 72
+    (8, 6, 9, 5, 8, 16, 8),  # the electron pair of BENCH_SPLIT=0: d = 16
+])
+def test_heff_kernel_layout_matches_plain(b, k, x, r, wl, d, wr):
+    """The H_eff kernel's layout contract on the CPU: small-integer ψ, L,
+    W and R, the three staged GEMMs through the kernel's padded layouts
+    equal ``heff_apply_lo`` bit for bit, and the padding holds zeros."""
+    rng = np.random.default_rng(16)
+    L, W = small_ints(rng, 3, b, wl, k), small_ints(rng, 3, wl, d, d, wr)
+    R = small_ints(rng, 3, x, wr, r)
+    psi = small_ints(rng, 3, k, d, r).to(torch.complex64)
+    ops = CM.heff_operands(L, W, R)
+    assert ops.W.shape == (2, wl, d, CM.pad8(d * wr))
+    for t, n in ((ops.L, k), (ops.W, d * wr), (ops.R, r)):
+        assert not t[..., n:].any()
+    want = CM.heff_lo(ops, psi)
+    got = staged_chain(psi, ops, passes=1)
+    assert float(torch.linalg.vector_norm(want)) > 0
+    assert torch.equal(got, want)
+
+
 def _lossy(name, variant, ops, v):
     """The plain matvec with one bf16 rounding more ("bf16 output") or
     one less ("T1 in float32"): faults REL_CARD must catch."""
@@ -248,6 +353,7 @@ def _on(cuda, *arrays):
     (1024, 1024, 1024, 8, 4),  # the chi=1024 bulk site
     (1, 1, 4, 1, 4), (4, 1, 16, 7, 4), (64, 16, 256, 8, 4),  # chain edges
     (24, 16, 40, 3, 4), (130, 70, 33, 7, 4),  # ragged tiles
+    (130, 70, 33, 8, 9), (64, 40, 72, 8, 16),  # d = 9 and d = 16 sites
 ])
 def test_heff_kernel_matches_plain_on_card(cuda, b, k, x, w, d):
     wl, wr = (1, w) if b == 1 else (w, w)
@@ -311,11 +417,18 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         CM.heff_lo(ops, psi[:4])
     with pytest.raises(TypeError):
-        CM.heff_lo(CM.HeffOps(ops.L.float(), ops.W, ops.R), psi)
+        CM.heff_lo(ops._replace(L=ops.L.float()), psi)
+    shifted = torch.empty(ops.W.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = shifted[1:].view(ops.W.shape)  # contiguous, 2 bytes off 16
+    shifted.copy_(ops.W)
+    with pytest.raises(ValueError):
+        CM.heff_lo(ops._replace(W=shifted), psi)
+    # d·w_r = 36 and W of 1296 entries, which the fp32-FMA kernel refused
     wide = CM.heff_operands(*_on(cuda, _cx(rng, 8, 9, 8), _cx(rng, 9, 4, 4, 9),
                                  _cx(rng, 8, 9, 8)))
-    with pytest.raises(ValueError):  # d·w_r = 36 > 32
-        CM.heff_lo(wide, psi)
+    got = CM.heff_lo(wide, psi)
+    want = TK.heff_apply_lo(*CM.plain_planes(wide), psi)
+    assert _rel(got.cpu(), want.cpu()) < REL_CARD
     kops = CM.keff_operands(L, R)
     sig = psi[:, 0, :].contiguous()
     with pytest.raises(TypeError):

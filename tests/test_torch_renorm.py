@@ -1,7 +1,7 @@
 """The bf16x3 chain of the port (``cuda_renorm``) against the JAX package.
 
-``kernels.chain3_plain`` is the plain version of ``csrc/chain_bf16x3.cu``
-and the port's counterpart of the JAX package's
+``kernels.chain3_plain`` is the plain version of ``csrc/chain_tc.cu`` at
+bf16x3 and the port's counterpart of the JAX package's
 ``pallas_renorm._renorm3_kernel``.  On the CPU its four mappings are held
 against JAX: the environment transfers against ``renorm_left_pallas`` /
 ``renorm_right_pallas`` (interpret mode, the shapes of
@@ -34,8 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+from pytdscf_torch.mps import cuda_matvec as CM
 from pytdscf_torch.mps import cuda_renorm as CR
 from pytdscf_torch.mps import kernels as TK
+from test_torch_matvec import small_ints, staged_chain
 
 torch.set_num_threads(1)
 
@@ -176,38 +178,63 @@ def test_hilo_planes_carry_sixteen_bits():
     assert bool((torch.abs(hi) <= torch.abs(x.real)).all())  # truncated
 
 
-def _rp_shapes(chi=1024, nuc=8):
-    """(l, r) bonds and (w_l, w_r) MPO widths of bench_chi.py's radical
-    pair: 2·nuc + 2 sites of dimension 4."""
-    nsite = 2 * nuc + 2
-    bonds = [min(4 ** min(p, nsite - p), chi) for p in range(nsite + 1)]
-    widths = [1, 7] + [8] * (nsite - 3) + [7, 1]
-    return [(bonds[p], bonds[p + 1], widths[p], widths[p + 1])
-            for p in range(nsite)]
+# (b, k, p, o, w, d) of the layout test: ragged (every depth padded), the
+# chain's first site (b = k = 1, w = 1), and d = 9, 16 with w = 8 (W of
+# 5184 and 16384 entries)
+LAYOUT_SHAPES = [
+    (13, 10, 11, 9, 3, 3), (1, 1, 4, 4, 1, 4), (6, 5, 7, 4, 8, 9),
+    (4, 3, 5, 6, 8, 16),
+]
 
 
-@pytest.mark.parametrize("chi", [16, 1024, 2048])
-def test_tiles_fit_every_site_of_the_radical_pair(chi):
-    """The kernel's tile limits hold at every site of the radical pair (its
-    chain shapes, χ=16 to the χ=2048 anchor), and the scratch slots stay a
-    few copies of the output."""
-    d = 4
-    for l, r, wl, wr in _rp_shapes(chi):
-        cases = [  # (K, X, din, dout, wl, wr, B) of each mapping
-            (l, r, wl, wr, d, d, r),  # renorm left
-            (r, l, wr, wl, d, d, l),  # renorm right
-            (l, r, d, d, wl, wr, l),  # heff
-            (r, r, 1, 1, wr, wr, r),  # keff on the bond right of the site
-        ]
-        for K_, X, din, dout, a, c, B in cases:
-            tk, tx, G = CR.tiles(K_, X, din, dout, a, c)
-            assert tk * din <= CR.ROWS1 and tx * c <= CR.COLS1
-            assert dout * tx <= CR.COLS3
-            assert -(-dout * tx // 8) * 8 * (-(-a * tk // 32) * 32 + 8) <= CR.T2_PLANE
-            assert 1 <= G <= -(-K_ // tk)
-            assert G * B * dout * X * 8 <= 2 ** 29 * (chi / 1024) ** 2
-        if chi == 1024 and (l, r) == (1024, 1024):
-            assert CR.tiles(l, r, wl, wr, d, d) == (16, 16, 5)
+def _layout_case(mapping, b, k, p, o, w, d):
+    """(ψ, ops, the wrapper's output on the CPU) of one mapping on small
+    nonzero integers: ψ and R up to 15 (T1 then carries more than the 8
+    bits of its hi plane), L and W up to 3."""
+    rng = np.random.default_rng(17)
+    def big(*shape):
+        return small_ints(rng, 15, *shape)
+
+    def small(*shape):
+        return small_ints(rng, 3, *shape)
+
+    if mapping in ("left", "right"):
+        blk, W = big(b, w, k), small(w, d, d, w)
+        if mapping == "left":
+            a_bra, a_ket = small(b, d, o), big(k, d, p)
+            ops = CR.heff_operands(torch.conj_physical(a_bra).permute(2, 1, 0),
+                                 W.permute(1, 3, 0, 2), a_ket.permute(2, 1, 0))
+            return blk, ops, CR.renorm_left_hi(blk, a_bra, W, a_ket)
+        b_bra, b_ket = small(o, d, b), big(p, d, k)
+        ops = CR.heff_operands(torch.conj_physical(b_bra), W.permute(1, 0, 3, 2), b_ket)
+        return blk, ops, CR.renorm_right_hi(blk, b_bra, W, b_ket)
+    L, R = small(b, w, k), big(p, w, o)
+    if mapping == "heff":
+        psi = big(k, d, o)
+        ops = CR.heff_operands(L, small(w, d, d, w), R)
+        return psi, ops, CR.heff_hi(ops, psi)
+    sig = big(k, o)
+    ops = CR.keff_operands(L, R)
+    return sig.unsqueeze(1), ops, CR.keff_hi(ops, sig).unsqueeze(1)
+
+
+@pytest.mark.parametrize("mapping", ["left", "right", "heff", "keff"])
+@pytest.mark.parametrize("b,k,p,o,w,d", LAYOUT_SHAPES)
+def test_chain_kernel_layout_matches_plain(mapping, b, k, p, o, w, d):
+    """The bf16x3 chain kernel's layout contract on the CPU, in each of its
+    four mappings: on small integers every float32 sum is exact, so the
+    splits of T1 and T2 are the only roundings, and the staged GEMMs
+    through the kernel's four-plane padded layouts (``staged_chain``,
+    ``tests/test_torch_matvec.py``) equal ``chain3_plain`` (the wrapper's
+    CPU route) bit for bit, with the padding zero."""
+    psi, ops, want = _layout_case(mapping, b, k, p, o, w, d)
+    for t, n in ((ops.L, ops.k), (ops.R, ops.r)):
+        assert t.shape[0] == 4 and t.shape[-1] == CM.pad8(n) and not t[..., n:].any()
+    if ops.W is not None:
+        assert not ops.W[..., ops.j * ops.R.shape[2]:].any()
+    got = staged_chain(psi.to(torch.complex64), ops, passes=3)
+    assert float(torch.linalg.vector_norm(want)) > 0
+    assert torch.equal(got.to(want.dtype), want)
 
 
 # ------------------------------------------------------------ on the card
@@ -237,6 +264,7 @@ RENORM_SHAPES = [  # (b, k, p, o, w, d)
     (1, 1, 4, 4, 1, 4), (4, 4, 16, 16, 7, 4),  # chain edges
     (256, 256, 1024, 1024, 8, 4),
     (130, 70, 33, 45, 7, 4),  # ragged, all four bonds different
+    (130, 70, 33, 45, 8, 9), (64, 40, 72, 36, 8, 16),  # d = 9, 16: W > 1024
 ]
 
 
@@ -255,12 +283,15 @@ def test_renorm_kernel_matches_plain_on_card(cuda, direction, b, k, p, o, w, d):
     _card_check(kernel, plain, CR.renorm_hi, args)
     for t in ops:  # the lo planes survive on the card
         assert bool((t[..., 2:] != 0).any())
+    planes = CM.bf16_planes(args[1], passes=3)  # the wrapper's split
+    assert bool((planes[2:] != 0).any())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,k,x,w,d", [
     (1024, 1024, 1024, 8, 4), (1, 1, 4, 1, 4), (4, 1, 16, 7, 4),
     (64, 16, 256, 8, 4), (130, 70, 33, 7, 4),
+    (130, 70, 33, 8, 9), (64, 40, 72, 8, 16),  # d = 9, 16: W > 1024
 ])
 def test_matvec_hi_kernel_matches_plain_on_card(cuda, b, k, x, w, d):
     wl, wr = (1, w) if b == 1 else (w, w)
@@ -268,14 +299,15 @@ def test_matvec_hi_kernel_matches_plain_on_card(cuda, b, k, x, w, d):
     L, W, R, psi = (torch.as_tensor(a, dtype=torch.complex64, device=cuda) for a in (
         _cx(rng, b, wl, k), _cx(rng, wl, d, d, wr), _cx(rng, x, wr, x), _cx(rng, k, d, x)))
     ops = CR.heff_operands(L, W, R)
-    _card_check(CR.heff_hi, lambda o, v: TK.chain3_plain(TK.hilo(v), *o),
+    _card_check(CR.heff_hi, lambda o, v: TK.chain3_plain(TK.hilo(v), *CR.plain_hilo(o)),
                 CR.matvec_hi, (ops, psi))
     # K_eff on the bond right of the site: L' (x, wr, x), R, σ (x, x)
     Lk = torch.as_tensor(_cx(rng, x, wr, x), dtype=torch.complex64, device=cuda)
     sig = torch.as_tensor(_cx(rng, x, x), dtype=torch.complex64, device=cuda)
     kops = CR.keff_operands(Lk, R)
     _card_check(CR.keff_hi, lambda o, v: TK.chain3_plain(
-        TK.hilo(v.unsqueeze(1)), *o)[:, 0, :], CR.matvec_hi, (kops, sig))
+        TK.hilo(v.unsqueeze(1)), *CR.plain_hilo(o))[:, 0, :], CR.matvec_hi,
+        (kops, sig))
 
 
 @pytest.mark.cuda
@@ -301,6 +333,11 @@ def test_chain_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         CR.heff_hi(ops, psi[:4])
     with pytest.raises(TypeError):
-        CR.heff_hi(CR.HiOps(ops.L.float(), ops.W, ops.R), psi)
-    with pytest.raises(ValueError):
-        CR.heff_hi(CR.HiOps(ops.L.transpose(0, 2), ops.W, ops.R), psi)
+        CR.heff_hi(ops._replace(L=ops.L.float()), psi)
+    with pytest.raises(TypeError):
+        CR.heff_hi(ops, psi.to(torch.complex128))
+    with pytest.raises(ValueError):  # a non-contiguous operand
+        strided = ops.R.transpose(1, 2).contiguous().transpose(1, 2)
+        CR.heff_hi(ops._replace(R=strided), psi)
+    with pytest.raises(ValueError):  # a non-contiguous vector
+        CR.heff_hi(ops, psi.transpose(0, 2).contiguous().transpose(0, 2))
