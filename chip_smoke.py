@@ -14,12 +14,17 @@ Phases (any failure exits nonzero, before the result line):
    complex64, thresh_exp 1e-6, max_krylov 10, dt 0.2 fs:
    a. each kernel of the path against its plain PyTorch version on the
       chain's operands after one step: the Lanczos exponential (H step at
-      a bulk and at the exciton site, K step at a bulk bond: same k_used,
-      ‖Δψ‖ < 5e-6) and the MGS QR at (240, 30), full rank and rank
-      deficient (orthogonality, reconstruction, agreement);
+      a bulk and at the exciton site, K step at a bulk bond: same status,
+      ‖Δψ‖ < 5e-6, a second launch bit-identical) through one block and
+      clusters of 8 and 16 CTAs, each timed; the same checks and times for
+      every Lanczos shape of a chain step on its own operands (the route
+      sweep); the MGS QR at (240, 30), full rank and rank deficient
+      (orthogonality, reconstruction, agreement);
    b. five counted steps through ``TDVPEngine.propagate``: ⟨H⟩ within 5e-6
       of 0.0182253410, norm within 1e-5 of 1, and exactly 734 Lanczos and
-      366 QR kernel launches per step;
+      366 QR kernel launches per step, the Lanczos ones by route and
+      cluster size as the shapes decide (H steps on 16 CTAs, (30, 30) K
+      steps on 8, the M = 8 edge steps on one block);
    c. one more step under ``torch.profiler`` (lines ``profile:``);
 4. the same chain through the port's entry point, ``Simulator.propagate``
    (1 + 5 steps of 0.2 fs, thresh_sil 1e-6, complex64, properties written
@@ -28,12 +33,14 @@ Phases (any failure exits nonzero, before the result line):
    a. the site kernel against its plain version on the chain's operands at
       the bulk site and the exciton site, both directions (cores, psi_next
       and blocks within 5e-6, |Δlog| < 5e-6, the same Krylov status, a
-      second launch bit-identical), timed at the bulk beside the same
-      update through the separate kernels;
+      second launch bit-identical), through its own route; at the bulk,
+      forward, also through the one-block route and a cluster of 8 CTAs,
+      each timed beside the same update through the separate kernels;
    b. the run, counted: ⟨H⟩ within 5e-6 of 0.0182253410, the norm,
       ``autocorr.dat`` and ``populations.dat`` with 6 rows, exactly 360
-      site, 14 Lanczos and 6 QR launches per step, no plain call, and the
-      mean Krylov dimension within 0.05 of phase 3's over the same steps;
+      site (each on its shape's route: all on the cluster), 14 Lanczos and
+      6 QR launches per step, no plain call, and the mean Krylov
+      dimension within 0.05 of phase 3's over the same steps;
    c. three bare ``propagate`` steps of its engine (s/step) and one under
       ``torch.profiler``;
 5. the χ=1024 radical-pair Liouville MPDO (``bench_chi.py``'s defaults at
@@ -80,7 +87,10 @@ launches, error, times and bound (the least time the card could take for
 the timed call's work: its operations at the card's peak for their type or
 its bytes at the memory rate, whichever is larger; H100 SXM data sheet
 peaks at 700 W); the MGS entry carries its two timed shapes as ``cases``,
-each with its route and its launches on the main paths.  The last line is
+each with its route and its launches on the main paths; the Lanczos and
+site entries their launches by route, the cluster size and the bulk
+times of every route (the Lanczos entry also the K step's, its cluster
+launches by size and the route sweep).  The last line is
 the result ``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
 
@@ -263,6 +273,14 @@ def site_operands(engine, p: int):
 
 
 def check_lanczos(engine, dt_au, results):
+    """The Lanczos kernel against its plain version on the chain's
+    operands: the H step at the bulk and the exciton site, the K step at a
+    bulk bond, each through its own route and size
+    (``cuda_lanczos.route``, ``cluster_size``), through one block and
+    through clusters of 8 and 16 CTAs: the plain version's status, ‖Δψ‖ <
+    5e-6, a second launch equal bit for bit.  Each is timed; the bulk H
+    step also as the entry of the ``kernels`` line, the bulk K step for
+    the route crossover."""
     import torch
 
     from pytdscf_torch.mps import cuda_lanczos as CL
@@ -285,36 +303,193 @@ def check_lanczos(engine, dt_au, results):
     worst = 0.0
     for name, ch, v, scale in checks:
         args = (v, scale, cfg.thresh_exp, cfg.max_krylov, cfg.conserve_norm)
-        out_k, st_k = CL.lanczos_expm(ch, *args)
         kmax = min(cfg.max_krylov, v.numel())
         out_p, st_p = CL.lanczos_expm_plain(*ch, v, scale, cfg.thresh_exp,
                                             kmax, cfg.conserve_norm)
-        torch.cuda.synchronize()
-        st_k, st_p = st_k.tolist(), st_p.tolist()
-        dpsi = float(torch.linalg.vector_norm(out_k - out_p))
-        err = float(torch.max(torch.abs(out_k - out_p)))
-        require(bool(torch.isfinite(out_k).all()), f"lanczos {name}: not finite")
-        require(st_k == st_p, f"lanczos {name}: kernel status {st_k} "
-                f"vs plain {st_p}")
-        require(dpsi < LANCZOS_TOL, f"lanczos {name}: ‖Δψ‖ {dpsi:.3e}")
-        ms = cuda_ms(lambda: CL.lanczos_expm(ch, *args), 50)
+        st_p = st_p.tolist()
         plain_ms = cuda_ms(lambda: CL.lanczos_expm_plain(
             *ch, v, scale, cfg.thresh_exp, kmax, cfg.conserve_norm), 5)
-        log(f"lanczos {name}: M={v.shape[0]} r={v.shape[1]} "
-            f"nc={ch[0].shape[0]} k_used={st_k[0]} ‖Δψ‖={dpsi:.3e} "
-            f"max|Δ|={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        worst = max(worst, err)
+        nc, M, r = ch[0].shape[0], v.shape[0], v.shape[1]
+        own, own_c = CL.route(M, r, nc), CL.cluster_size(M, r, nc)
+        variants = [(own, own_c)] + [
+            (way, c) for way, c in (("block", None), ("cluster", 8),
+                                    ("cluster", 16))
+            if (way, c) != (own, own_c)
+            and (way == "block" or CL.smem_bytes(nc, M, r, c) <= CL.MAX_SMEM)]
+        times = {}
+        for way, size in variants:
+            kw = dict(way=way, cluster=size)
+            out_k, st_k = CL.lanczos_expm(ch, *args, **kw)
+            again, _ = CL.lanczos_expm(ch, *args, **kw)
+            torch.cuda.synchronize()
+            st_k = st_k.tolist()
+            tag = route_tag(way, size)
+            dpsi = float(torch.linalg.vector_norm(out_k - out_p))
+            err = float(torch.max(torch.abs(out_k - out_p)))
+            require(bool(torch.isfinite(out_k).all()),
+                    f"lanczos {name} [{tag}]: not finite")
+            require(torch.equal(out_k, again), f"lanczos {name} [{tag}]: a "
+                    "second launch gave another result")
+            require(st_k == st_p, f"lanczos {name} [{tag}]: kernel status "
+                    f"{st_k} vs plain {st_p}")
+            require(dpsi < LANCZOS_TOL, f"lanczos {name} [{tag}]: ‖Δψ‖ "
+                    f"{dpsi:.3e}")
+            times[tag] = cuda_ms(lambda: CL.lanczos_expm(ch, *args, **kw), 50)
+            if (way, size) == variants[0]:
+                ms, worst = times[tag], max(worst, err)
+            log(f"lanczos {name} [{tag}]: M={M} r={r} nc={nc} k_used="
+                f"{st_k[0]} ‖Δψ‖={dpsi:.3e} max|Δ|={err:.3e}; repeat "
+                f"bit-identical; kernel {times[tag]:.4f} ms")
+        log(f"lanczos {name}: route {own}, plain {plain_ms:.4f} ms; "
+            + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items()))
         if "lanczos_expm" not in results:
             # k_used matvecs of Σ_c H_c·(ψ·Rt_c): nc·(M·r² + M²·r) complex
             # multiply-adds each (the Krylov recurrence around them is
             # smaller by M)
             H, Rt = ch
-            nc, M, r = H.shape[0], v.shape[0], v.shape[1]
-            flops = 8.0 * st_k[0] * nc * (M * r * r + M * M * r)
+            flops = 8.0 * st_p[0] * nc * (M * r * r + M * M * r)
             results["lanczos_expm"] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                **bound(flops, PEAK_FP32, nbytes(H, Rt, v, out_k))}
+                "route": own, "cluster": own_c, "times_by_route": times,
+                **bound(flops, PEAK_FP32, nbytes(H, Rt, v, out_p))}
+        if name.startswith("K step"):
+            results["lanczos_expm"]["k_step_times_by_route"] = times
+        if name == f"H step, site {BULK_SITE}":
+            # the cost of one iteration and of the rest (launch, set-up,
+            # result) on each route: one and ten iterations, no stopping;
+            # on the cluster also with the first channel alone, whose
+            # matvec does a quarter of the work with the same exchanges
+            per = {}
+            one = tuple(t[:1].contiguous() for t in ch)
+            for way, chs in (("block", ch), ("cluster", ch),
+                             ("cluster, 1 channel", one)):
+                t1, t10 = (cuda_ms(lambda k=k, chs=chs: CL.lanczos_expm(
+                    chs, v, scale, 0.0, k, cfg.conserve_norm,
+                    way=way.split(",")[0]), 20) for k in (1, 10))
+                per[way] = {"per_iteration_ms": (t10 - t1) / 9,
+                            "fixed_ms": t1 - (t10 - t1) / 9}
+            results["lanczos_expm"]["iteration_cost"] = per
+            log(f"lanczos {name}: per iteration (slope of 1 → 10 "
+                "iterations) " + ", ".join(
+                    f"{way} {c['per_iteration_ms']:.4f} ms + "
+                    f"{c['fixed_ms']:.4f} ms fixed" for way, c in per.items()))
     return worst
+
+
+def route_tag(way: str, size) -> str:
+    return way + (f" C={size}" if way == "cluster" else "")
+
+
+def lanczos_shapes(engine) -> dict:
+    """The Lanczos launches of one chain step by (kind, M, r, nc): every
+    site's H step in both half-sweeps (ψ (l·d, r)), and the K step of
+    every non-last site of each (σ (r, r) forward, (l, l) backward)."""
+    per: dict = {}
+    n = engine.nsite
+    for p, core in enumerate(engine.cores[0]):
+        l, d, r = core.shape
+        wl, wr = engine.W[p].shape[0], engine.W[p].shape[-1]
+        for key, k in ((("H", l * d, r, wr), 2),
+                       (("K", r, r, wr), int(p < n - 1)),
+                       (("K", l, l, wl), int(p > 0))):
+            per[key] = per.get(key, 0) + k
+    return per
+
+
+def lanczos_routes(engine) -> tuple[dict, dict]:
+    """Lanczos launches of one chain step by route, and the cluster
+    route's by size (``cuda_lanczos.route``, ``cluster_size``)."""
+    from pytdscf_torch.mps import cuda_lanczos as CL
+
+    per, sizes = dict.fromkeys(CL.ROUTES, 0), {}
+    for (_, M, r, nc), k in lanczos_shapes(engine).items():
+        per[CL.route(M, r, nc)] += k
+        c = CL.cluster_size(M, r, nc)
+        if c is not None and k:
+            sizes[c] = sizes.get(c, 0) + k
+    return per, sizes
+
+
+def lanczos_sweep(engine, dt_au, results) -> None:
+    """Every Lanczos shape of a chain step on the chain's own operands (the
+    first site that has it, forward), through one block and clusters of 8
+    and 16 CTAs where they fit: each checked as ``check_lanczos`` checks
+    (status, ‖Δψ‖, a bit-identical repeat) and timed.  Logs, per shape, its
+    launches per step, its route and the fastest; and the device time of
+    one step's Lanczos calls under the routes as set and under each fixed
+    choice.  Timing only: the routes are the wrappers' own."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_lanczos as CL
+    from pytdscf_torch.mps import kernels as K
+
+    cfg = engine.config
+    left = engine.build_left_env_stack()
+    right = engine.build_right_env_stack()
+    shapes = lanczos_shapes(engine)
+    rows = []
+    for (kind, M, r, nc), count in sorted(shapes.items()):
+        if not count:
+            continue
+        for p, core in enumerate(engine.cores[0]):
+            l, d, rr = core.shape
+            wr = engine.W[p].shape[-1]
+            if (kind == "H" and (l * d, rr, wr) == (M, r, nc)) or (
+                    kind == "K" and p < engine.nsite - 1
+                    and (rr, rr, wr) == (M, r, nc)):
+                break
+        else:
+            log(f"lanczos sweep: no forward site with {kind} {(M, r, nc)}")
+            continue
+        (L, lL), W = left[p], engine.W[p]
+        R, lR = right[engine.nsite - 1 - p]
+        psi = engine.cores[0][p]
+        if kind == "H":
+            ch = CL.heff_channels(L, W, R, torch.exp(lL + lR))
+            v, scale = psi.reshape(M, r).contiguous(), -0.5j * dt_au
+        else:
+            L1, lL1 = left[p + 1]
+            ch = CL.keff_channels(L1, R, torch.exp(lL1 + lR))
+            v, scale = K.qr_right(psi)[1].contiguous(), 0.5j * dt_au
+        args = (v, scale, cfg.thresh_exp, cfg.max_krylov, cfg.conserve_norm)
+        kmax = min(cfg.max_krylov, v.numel())
+        out_p, st_p = CL.lanczos_expm_plain(*ch, v, scale, cfg.thresh_exp,
+                                            kmax, cfg.conserve_norm)
+        st_p = st_p.tolist()
+        times = {}
+        for way, size in (("block", None), ("cluster", 8), ("cluster", 16)):
+            if way == "cluster" and CL.smem_bytes(nc, M, r, size) > CL.MAX_SMEM:
+                continue
+            kw = dict(way=way, cluster=size)
+            tag = route_tag(way, size)
+            out_k, st_k = CL.lanczos_expm(ch, *args, **kw)
+            again, _ = CL.lanczos_expm(ch, *args, **kw)
+            torch.cuda.synchronize()
+            dpsi = float(torch.linalg.vector_norm(out_k - out_p))
+            require(st_k.tolist() == st_p, f"lanczos sweep {kind} "
+                    f"{(M, r, nc)} [{tag}]: status {st_k.tolist()} vs {st_p}")
+            require(dpsi < LANCZOS_TOL and torch.equal(out_k, again),
+                    f"lanczos sweep {kind} {(M, r, nc)} [{tag}]: ‖Δψ‖ "
+                    f"{dpsi:.3e} or a repeat differs")
+            times[tag] = cuda_ms(lambda: CL.lanczos_expm(ch, *args, **kw), 50)
+        own = route_tag(CL.route(M, r, nc), CL.cluster_size(M, r, nc))
+        rows.append({"kind": kind, "shape": [M, r, nc], "site": p,
+                     "per_step": count, "k_used": st_p[0], "route": own,
+                     "fastest": min(times, key=times.get), "ms": times})
+        log(f"lanczos sweep {kind} (M, r, nc)={(M, r, nc)} site {p}: "
+            f"{count}/step, k {st_p[0]}, own {own}, fastest {rows[-1]['fastest']}; "
+            + ", ".join(f"{t} {ms:.4f} ms" for t, ms in times.items()))
+    step_ms = {"as routed": sum(x["per_step"] * x["ms"][x["route"]]
+                                for x in rows)}
+    for tag in ("block", "cluster C=8", "cluster C=16"):
+        if all(tag in x["ms"] for x in rows):
+            step_ms[tag] = sum(x["per_step"] * x["ms"][tag] for x in rows)
+    step_ms["fastest each"] = sum(x["per_step"] * x["ms"][x["fastest"]]
+                                  for x in rows)
+    log("lanczos sweep: one step's Lanczos device ms (per-shape time × "
+        "launches) " + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
+    results["lanczos_expm"]["route_sweep"] = rows
+    results["lanczos_expm"]["route_sweep_step_ms"] = step_ms
 
 
 def check_mgs(name: str, m, timed: bool = False):
@@ -435,13 +610,14 @@ def counters() -> dict:
 
 
 def reset_counts() -> None:
-    """Zero every kernel wrapper's launch and plain-call counts."""
-    from pytdscf_torch.mps import cuda_qr as CQ
-
+    """Zero every kernel wrapper's launch, by-route and plain-call counts."""
     for c in counters().values():
         c.launches = 0
         c.plain_calls = 0
-    CQ.mgs_qr.route_launches = dict.fromkeys(CQ.ROUTES, 0)
+        if hasattr(c, "route_launches"):
+            c.route_launches = dict.fromkeys(c.route_launches, 0)
+        if hasattr(c, "cluster_launches"):
+            c.cluster_launches = {}
 
 
 def plain_calls() -> int:
@@ -471,6 +647,7 @@ def phase_chain(times) -> tuple[dict, float, object]:
     log(f"warm-up step: {time.perf_counter() - t0:.3f} s")
 
     err_lz = check_lanczos(engine, dt_au, times)
+    lanczos_sweep(engine, dt_au, times)
     err_qr = check_qr(times)
 
     # ---- the main path, counted
@@ -510,10 +687,23 @@ def phase_chain(times) -> tuple[dict, float, object]:
     routes = dict(CQ.mgs_qr.route_launches)
     require(routes["block"] == n_qr, f"qr launches by route {routes}: the "
             "chain's shapes take the one-block route")
+    lz_routes = dict(CL.lanczos_expm.route_launches)
+    lz_sizes = dict(CL.lanczos_expm.cluster_launches)
+    per, sizes = lanczos_routes(engine)
+    want = {k: TIMED_STEPS * n for k, n in per.items()}
+    want_sizes = {k: TIMED_STEPS * n for k, n in sizes.items()}
+    log(f"main path: lanczos launches by route {lz_routes}, the cluster's "
+        f"by size {lz_sizes}")
+    require(lz_routes == want and want["cluster"] > 0,
+            f"lanczos launches by route {lz_routes} != {want}")
+    require(lz_sizes == want_sizes and want_sizes.get(CL.CLUSTER, 0) > 0,
+            f"lanczos cluster launches by size {lz_sizes} != {want_sizes}")
     profile_step(engine, dt_au)
     mean_k = (k_warm * calls_warm + avg_k * calls) / (calls_warm + calls)
     return ({"lanczos_expm": (n_lz, err_lz), "mgs_qr": (n_qr, err_qr),
-             "mgs_qr_routes": routes}, mean_k, engine)
+             "mgs_qr_routes": routes, "lanczos_expm_routes": lz_routes,
+             "lanczos_expm_sizes": lz_sizes},
+            mean_k, engine)
 
 
 # ------------------------------------- the chain through Simulator.propagate
@@ -554,17 +744,69 @@ def gauge_weights(args, kw) -> tuple:
     return columns, diag / diag.max()
 
 
+def site_route(psi, W, forward: bool) -> str:
+    """The fused site kernel's route for a site in a direction (its
+    forward-form shape)."""
+    from pytdscf_torch.mps import cuda_site as CS
+
+    l, d, r = psi.shape
+    if forward:
+        return CS.route(W.shape[-1], l * d, r)
+    return CS.route(W.shape[0], r * d, l)
+
+
+def check_site_once(where, args, kw, want, way_kw) -> tuple:
+    """One kernel run of the fused site kernel against the plain version's
+    result ``want``: ψ_next, the blocks and the log-scale to 5e-6
+    absolute; the site tensor Q column by column, a live column's error
+    weighted by its share of the state (``gauge_weights``) to 5e-6, a dead
+    one's to DEAD_COLUMN_TOL, Q orthonormal to GAUGE_TOL; the plain
+    version's status; a second launch equal bit for bit.  Returns (the
+    unweighted errors, the report)."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_site as CS
+
+    got = CS.site_step_fused(*args, **kw, **way_kw)
+    again = CS.site_step_fused(*args, **kw, **way_kw)
+    torch.cuda.synchronize()
+    st, st_p = got[4].tolist(), want[4].tolist()
+    require(all(bool(torch.isfinite(t).all()) for t in got[:3]),
+            f"{where}: not finite")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{where}: a second launch gave another result")
+    require(st == st_p, f"{where}: status {st} vs plain {st_p}")
+    errs = [float(torch.max(torch.abs(a - b)))
+            for a, b in zip(got[:3], want[:3])]
+    dlog = abs(float(got[3]) - float(want[3]))
+    columns, share = gauge_weights(args, kw)
+    q = columns(got[0])
+    dq = torch.abs(q - columns(want[0])).amax(0)
+    werr = float(torch.max(dq * share))
+    dead = share == 0
+    dead_err = float(dq[dead].max()) if bool(dead.any()) else 0.0
+    eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
+    orth = float(torch.max(torch.abs(q.mH @ q - eye)))
+    require(max(werr, *errs[1:], dlog) < LANCZOS_TOL
+            and dead_err < DEAD_COLUMN_TOL and orth < GAUGE_TOL,
+            f"{where}: max|Δ| site (weighted) {werr:.3e}, dead "
+            f"columns {dead_err:.3e}, |QᴴQ−I| {orth:.3e}, next, "
+            f"blocks {errs[1:]}, |Δlog| {dlog:.3e}")
+    line = (f"{where}: status {st}; max|Δ| site {errs[0]:.3e} (live columns "
+            f"weighted {werr:.3e}, {int(dead.sum())} dead columns "
+            f"{dead_err:.3e}; |QᴴQ−I| {orth:.3e}) next {errs[1]:.3e} "
+            f"blocks {errs[2]:.3e}, |Δlog| {dlog:.3e}; repeat bit-identical")
+    return [*errs, dlog], line
+
+
 def check_site(engine, dt_au, results) -> float:
     """The fused site kernel against its plain version on the chain's
     operands: the bulk site and the exciton site, forward (next core p + 1)
-    and backward (p − 1).  ψ_next, the blocks and the log-scale are held to
-    5e-6 absolute; the site tensor Q column by column: a live column's
-    error weighted by its share of the state (``gauge_weights``) to 5e-6,
-    a dead one's to DEAD_COLUMN_TOL, and Q orthonormal to GAUGE_TOL.  At
-    the bulk, forward, the kernel, its plain version and the same update
-    through the separate kernels are timed."""
-    import torch
-
+    and backward (p − 1), each through its own route
+    (``cuda_site.route``), with ``check_site_once``'s criteria.  At the
+    bulk, forward, also through the one-block route and the other cluster
+    size (8 or 16 CTAs), all timed, beside the plain version and the same
+    update through the separate kernels."""
     from pytdscf_torch.config import Config
     from pytdscf_torch.mps import cuda_site as CS
     from pytdscf_torch.mps.tdvp import _site_step
@@ -579,41 +821,36 @@ def check_site(engine, dt_au, results) -> float:
             args = (psi, nxt, L, W, R, -0.5j * dt_au, cfg.thresh_exp, lL, lR)
             kw = dict(forward=forward, max_dim=cfg.max_krylov,
                       conserve=cfg.conserve_norm)
-            got = CS.site_step_fused(*args, **kw)
-            again = CS.site_step_fused(*args, **kw)
             want = CS.site_step_fused_plain(*args, **kw)
-            torch.cuda.synchronize()
-            where = f"site_step site {p} {'forward' if forward else 'backward'}"
-            st, st_p = got[4].tolist(), want[4].tolist()
-            require(all(bool(torch.isfinite(t).all()) for t in got[:3]),
-                    f"{where}: not finite")
-            require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                    f"{where}: a second launch gave another result")
-            require(st == st_p, f"{where}: status {st} vs plain {st_p}")
-            errs = [float(torch.max(torch.abs(a - b)))
-                    for a, b in zip(got[:3], want[:3])]
-            dlog = abs(float(got[3]) - float(want[3]))
-            columns, share = gauge_weights(args, kw)
-            q = columns(got[0])
-            dq = torch.abs(q - columns(want[0])).amax(0)
-            werr = float(torch.max(dq * share))
-            dead = share == 0
-            dead_err = float(dq[dead].max()) if bool(dead.any()) else 0.0
-            eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
-            orth = float(torch.max(torch.abs(q.mH @ q - eye)))
-            require(max(werr, *errs[1:], dlog) < LANCZOS_TOL
-                    and dead_err < DEAD_COLUMN_TOL and orth < GAUGE_TOL,
-                    f"{where}: max|Δ| site (weighted) {werr:.3e}, dead "
-                    f"columns {dead_err:.3e}, |QᴴQ−I| {orth:.3e}, next, "
-                    f"blocks {errs[1:]}, |Δlog| {dlog:.3e}")
-            line = (f"{where}: psi {tuple(psi.shape)} W {tuple(W.shape)} "
-                    f"status {st}; max|Δ| site {errs[0]:.3e} (live columns "
-                    f"weighted {werr:.3e}, {int(dead.sum())} dead columns "
-                    f"{dead_err:.3e}; |QᴴQ−I| {orth:.3e}) next {errs[1]:.3e} "
-                    f"blocks {errs[2]:.3e}, |Δlog| {dlog:.3e}; repeat "
-                    "bit-identical")
+            own = site_route(psi, W, forward)
+            where = (f"site_step site {p} "
+                     f"{'forward' if forward else 'backward'}")
+            # (route, C): its own, and at the bulk forward the one-block
+            # route and the other cluster size where it fits
+            variants = [(own, CS.CLUSTER)]
             if p == BULK_SITE and forward:
-                ms = cuda_ms(lambda: CS.site_step_fused(*args, **kw), 20)
+                l, d, r = psi.shape
+                variants += [("block", CS.CLUSTER)]
+                variants += [("cluster", c) for c in (8, 16)
+                             if c != CS.CLUSTER and CS.smem_bytes(
+                                 W.shape[-1], l * d, r, "cluster", c)
+                             <= CS.MAX_SMEM]
+            times = {}
+            for way, size in variants:
+                way_kw = dict(way=way, cluster=size)
+                tag = way + (f" C={size}" if way == "cluster" else "")
+                errs, line = check_site_once(f"{where} [{tag}]", args, kw,
+                                             want, way_kw)
+                if len(variants) > 1:
+                    times[tag] = cuda_ms(lambda: CS.site_step_fused(
+                        *args, **kw, **way_kw), 20)
+                    line += f"; kernel {times[tag]:.4f} ms"
+                log(f"{line}; psi {tuple(psi.shape)} W {tuple(W.shape)}")
+                if (way, size) == variants[0]:
+                    worst = max(worst, *errs)  # unweighted, as reported
+                    st = want[4].tolist()
+            if len(variants) > 1:
+                ms = times[next(iter(times))]
                 plain_ms = cuda_ms(lambda: CS.site_step_fused_plain(*args, **kw), 3)
                 sep = dict(cfg=cfg.replace(fused_site=False), forward=True,
                            last=False)
@@ -623,13 +860,34 @@ def check_site(engine, dt_au, results) -> float:
                 flops = site_flops(st, W.shape[-1], l * d, r, nxt[0].numel())
                 results["site_step"] = {
                     "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                    **bound(flops, PEAK_FP32, nbytes(psi, nxt, L, W, R, *got[:4]))}
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                         f"separate kernels {sep_ms:.4f} ms, bound "
-                         f"{results['site_step']['bound_ms']:.4f} ms")
-            log(line)
-            worst = max(worst, *errs, dlog)  # unweighted, as reported
+                    "route": own, "cluster": CS.CLUSTER,
+                    "times_by_route": times,
+                    "separate_kernels_ms": sep_ms,
+                    **bound(flops, PEAK_FP32, nbytes(psi, nxt, L, W, R,
+                                                     *want[:4]))}
+                log(f"{where}: route {own}; plain {plain_ms:.4f} ms, "
+                    f"separate kernels {sep_ms:.4f} ms, bound "
+                    f"{results['site_step']['bound_ms']:.4f} ms; "
+                    + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items()))
     return worst
+
+
+def site_routes(engine) -> dict:
+    """Fused-site launches of one step by route: each half-sweep's
+    non-last sites that ``cuda_site.site_fits`` takes, through the route
+    of their forward-form shape."""
+    from pytdscf_torch.mps import cuda_site as CS
+
+    per = dict.fromkeys(CS.ROUTES, 0)
+    cores, n = engine.cores[0], engine.nsite
+    for p in range(n):
+        for forward, q in ((True, p + 1), (False, p - 1)):
+            if not 0 <= q < n:
+                continue
+            if CS.site_fits(cores[p].shape, engine.W[p].shape,
+                            cores[q].shape, engine.config.max_krylov):
+                per[site_route(cores[p], engine.W[p], forward)] += 1
+    return per
 
 
 def phase_simulator(times, chain_k: float, chain_engine) -> dict:
@@ -672,6 +930,8 @@ def phase_simulator(times, chain_k: float, chain_engine) -> dict:
             n_site, n_lz = CS.site_step_fused.launches, CL.lanczos_expm.launches
             n_qr, plain = CQ.mgs_qr.launches, plain_calls()
             routes = dict(CQ.mgs_qr.route_launches)
+            site_by = dict(CS.site_step_fused.route_launches)
+            lz_by = dict(CL.lanczos_expm.route_launches)
             rows = {}
             for name in ("autocorr", "populations"):
                 with open(os.path.join("chip_sf_prop", f"{name}.dat")) as fh:
@@ -717,6 +977,11 @@ def phase_simulator(times, chain_k: float, chain_engine) -> dict:
             f"simulator: {calls} Krylov calls")
     require(abs(avg_k - chain_k) <= KRYLOV_TOL,
             f"simulator: mean Krylov {avg_k:.3f} vs chain {chain_k:.3f}")
+    want = {k: SIM_STEPS * n for k, n in site_routes(engine).items()}
+    log(f"simulator: site_step launches by route {site_by} (cluster of "
+        f"{CS.CLUSTER} CTAs); lanczos by route {lz_by}")
+    require(site_by == want and want["cluster"] > 0,
+            f"simulator: site_step launches by route {site_by} != {want}")
 
     # ---- the bare fused-site sweep of the same engine
     reset_counts()
@@ -736,7 +1001,8 @@ def phase_simulator(times, chain_k: float, chain_engine) -> dict:
     require(routes["block"] == n_qr, f"simulator: qr launches by route "
             f"{routes}")
     return {"site_step": (n_site, err), "lanczos_expm": (n_lz, None),
-            "mgs_qr": (n_qr, None), "mgs_qr_routes": routes}
+            "mgs_qr": (n_qr, None), "mgs_qr_routes": routes,
+            "site_step_routes": site_by, "lanczos_expm_routes": lz_by}
 
 
 # ------------------------------------------------- χ=1024 radical pair
@@ -1113,6 +1379,7 @@ def phase_radical_pair(times, preset: str) -> dict:
     from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_qr as CQ
     from pytdscf_torch.mps import cuda_renorm as CR
+    from pytdscf_torch.mps import cuda_site as CS
 
     tag = f"radical pair [{preset}]"
     t0 = time.perf_counter()
@@ -1193,6 +1460,8 @@ def phase_radical_pair(times, preset: str) -> dict:
     require(n_h > 0 and n_k > 0, "a matvec kernel was never launched")
     require(plain == 0, f"{plain} plain-version calls on the card")
     require(n_lz == 0, "the Lanczos kernel ran on the Arnoldi path")
+    require(CS.site_step_fused.launches == 0,
+            "the fused site kernel ran on the Arnoldi path")
     steps, moves = 1 + RP_STEPS, mgs_moves(engine)
     require(n_qr == steps * len(moves),
             f"qr launches {n_qr} != {steps} × {len(moves)}")
@@ -1271,6 +1540,21 @@ def main() -> int:
             **{key: times[name][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    # launches by route, summed over the main paths
+    for name in ("lanczos_expm", "site_step"):
+        entry = kernels[[k["name"] for k in kernels].index(name)]
+        entry["launches_by_route"] = {
+            way: sum(path.get(f"{name}_routes", {}).get(way, 0)
+                     for path in paths)
+            for way in ("block", "cluster")}
+        entry["cluster_ctas"] = times[name]["cluster"]
+        entry["times_by_route"] = times[name]["times_by_route"]
+    kernels[0]["cluster_launches_by_size"] = {
+        str(c): sum(path.get("lanczos_expm_sizes", {}).get(c, 0)
+                    for path in paths) for c in (8, 16)}
+    for key in ("k_step_times_by_route", "iteration_cost", "route_sweep",
+                "route_sweep_step_ms"):
+        kernels[0][key] = times["lanczos_expm"][key]
     # the MGS cases: each timed shape with its route's main-path launches
     kernels[[k["name"] for k in kernels].index("mgs_qr")]["cases"] = [
         {**case, "launches": sum(path["mgs_qr_routes"][case["route"]]

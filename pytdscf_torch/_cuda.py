@@ -46,6 +46,11 @@ SIGNATURES = {
     "pytdscf_lanczos_expm_c64": [
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P,
     ],
+    # ... the same, then the cluster size C, resident, stream
+    "pytdscf_lanczos_expm_cluster_c64": [
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
+        _P,
+    ],
     # device, psi, L, W, R, psip, t1, t2, out, B, K, X, Rd, d, wl, wr, stream
     "pytdscf_heff_tc_c64": [
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
@@ -66,6 +71,11 @@ SIGNATURES = {
     "pytdscf_site_step_c64": [
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P,
+    ],
+    # ... the same, then the cluster size C, stream
+    "pytdscf_site_step_cluster_c64": [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P,
     ],
 }
 

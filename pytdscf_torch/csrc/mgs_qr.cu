@@ -45,19 +45,16 @@
 //    qwork given), for a Q beyond a cluster's shared memory (N * r above
 //    about 8 * 27k).  No shape of the chain or the radical pair takes it.
 //
-// The one-block factorisation is tdvp_device.cuh's mgs_factor (site_step.cu
-// runs the same one inside its fused site update); the cluster route has its
-// own device functions below.
+// Both factorisations are tdvp_device.cuh's: the one-block mgs_factor and
+// the cluster layer's cluster_mgs_factor (site_step.cu runs each of them
+// inside its fused site update, on its one-block and cluster routes).
 //
 // Layout: m (N, r) complex64 row-major (torch's contiguous layout, float2
 // interleaved), Q (N, r) row-major, R (r, r) row-major.  N >= r >= 1.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "tdvp_device.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -87,107 +84,6 @@ mgs_qr_kernel(const float2* __restrict__ m, float2* __restrict__ q_out,
 
 // ------------------------------------------------------- the cluster route
 
-constexpr int kStrips = 4;                  // row strips of the dot products
-constexpr int kStripCols = kThreads / kStrips;  // columns per strip round
-
-// One CTA's view of the cluster: its rank, its rows and its inboxes.  A
-// cluster-wide sum fills the inbox of the current parity and flips it; two
-// alternate, so a CTA writes the next sum's partials only after passing the
-// barrier of the previous one, which every CTA reaches only after it has
-// read the inbox that is about to be reused.
-struct ClusterRows {
-  int rank;
-  int row0;       // first row of m held here
-  int nh;         // rows held here (Nc, fewer in the last CTA)
-  int r;
-  int rp;         // row stride of Q here: r rounded up to an odd number
-  float2* part;   // [kStrips][r] strip partials of the dot products
-  float2* inbox;  // [2][kCluster][r]
-  int parity;
-
-  // [kCluster][r] inbox of the current sum
-  __device__ float2* box() const { return inbox + parity * kCluster * r; }
-};
-
-// Cluster-wide sum of one float per CTA (`part`, the same in every thread
-// of the CTA), returned to every thread of every CTA with the same bits.
-__device__ float cluster_sum(ClusterRows& c, float part) {
-  float2* box = c.box();
-  if (threadIdx.x < kCluster)
-    cg::this_cluster().map_shared_rank(box, threadIdx.x)[c.rank * c.r] =
-        make_float2(part, 0.f);
-  cg::this_cluster().sync();
-  float t = box[0].x;
-  for (int q = 1; q < kCluster; ++q) t += box[q * c.r].x;
-  c.parity ^= 1;
-  return t;
-}
-
-// ||x||^2 over the cluster's rows of x (this CTA's nh entries).
-__device__ float cluster_norm2(ClusterRows& c, const float2* x, float* red) {
-  float s = 0.f;
-  for (int n = threadIdx.x; n < c.nh; n += kThreads) {
-    const float2 a = x[n];
-    s += a.x * a.x + a.y * a.y;
-  }
-  return cluster_sum(c, block_sum<kThreads>(s, red));
-}
-
-// One Gram–Schmidt pass of x (this CTA's rows) against Q[:, :k] over all N
-// rows: the coefficients cf[j] = <Q_j|x> (partials over each CTA's rows,
-// summed in rank order), then x -= sum_j Q_j cf[j] on this CTA's rows.
-// Q is row-major with an odd row stride, so that both the dot products
-// (threads over j, one row strip per warp) and the update (threads over n)
-// read distinct banks.
-__device__ void cluster_gs_pass(ClusterRows& c, const float2* Q, float2* x,
-                                float2* cf, int k) {
-  const int strip = threadIdx.x / kStripCols, jt = threadIdx.x % kStripCols;
-  const int len = (c.nh + kStrips - 1) / kStrips;
-  const int n0 = strip * len, n1 = min(c.nh, n0 + len);
-  for (int j = jt; j < k; j += kStripCols) {
-    float re = 0.f, im = 0.f;
-    for (int n = n0; n < n1; ++n) {
-      const float2 a = Q[n * c.rp + j], b = x[n];
-      re += a.x * b.x + a.y * b.y;  // conj(a) * b
-      im += a.x * b.y - a.y * b.x;
-    }
-    c.part[strip * c.r + j] = make_float2(re, im);
-  }
-  __syncthreads();
-  float2* box = c.box();
-  for (int j = threadIdx.x; j < k; j += kThreads) {
-    float2 t = c.part[j];
-    for (int s = 1; s < kStrips; ++s) {
-      t.x += c.part[s * c.r + j].x;
-      t.y += c.part[s * c.r + j].y;
-    }
-    for (int q = 0; q < kCluster; ++q)
-      cg::this_cluster().map_shared_rank(box, q)[c.rank * c.r + j] = t;
-  }
-  cg::this_cluster().sync();
-  for (int j = threadIdx.x; j < k; j += kThreads) {
-    float2 t = box[j];
-    for (int q = 1; q < kCluster; ++q) {
-      t.x += box[q * c.r + j].x;
-      t.y += box[q * c.r + j].y;
-    }
-    cf[j] = t;
-  }
-  c.parity ^= 1;
-  __syncthreads();
-  for (int n = threadIdx.x; n < c.nh; n += kThreads) {
-    float sr = 0.f, si = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float2 a = Q[n * c.rp + j], b = cf[j];
-      sr += a.x * b.x - a.y * b.y;
-      si += a.x * b.y + a.y * b.x;
-    }
-    const float2 xv = x[n];
-    x[n] = make_float2(xv.x - sr, xv.y - si);
-  }
-  __syncthreads();
-}
-
 // Launched as one cluster of kCluster CTAs.  Shared memory per CTA
 // (cuda_qr.smem_bytes(N, r, "cluster")): Q's Nc rows (Nc, rp), holding m's
 // columns until each becomes Q's; v and e (Nc each); c1, c2, c3 (r each);
@@ -197,71 +93,22 @@ mgs_qr_cluster_kernel(const float2* __restrict__ m, float2* __restrict__ q_out,
                       float2* __restrict__ r_out, int N, int r, int Nc) {
   extern __shared__ float2 smem[];
   __shared__ float red[kWarps];
-  ClusterRows c;
-  c.rank = (int)cg::this_cluster().block_rank();
-  c.row0 = c.rank * Nc;
-  c.nh = max(0, min(Nc, N - c.row0));
-  c.r = r;
-  c.rp = r | 1;
   float2* Q = smem;
-  float2* v = Q + (size_t)Nc * c.rp;
+  float2* v = Q + (size_t)Nc * (r | 1);
   float2* e = v + Nc;
   float2* c1 = e + Nc;
   float2* c2 = c1 + r;
   float2* c3 = c2 + r;
-  c.part = c3 + r;
-  c.inbox = c.part + kStrips * r;
-  c.parity = 0;
+  float2* part = c3 + r;
+  ClusterRows c = cluster_rows(N, Nc, r, part, part + kStrips * r);
   const int tid = threadIdx.x;
 
-  float s = 0.f;
   for (int i = tid; i < c.nh * r; i += kThreads) {
     const int n = i / r, j = i - n * r;
-    const float2 a = m[(size_t)(c.row0 + n) * r + j];
-    Q[n * c.rp + j] = a;
-    s += a.x * a.x + a.y * a.y;
+    Q[n * c.rp + j] = m[(size_t)(c.row0 + n) * r + j];
   }
-  // every CTA of the cluster runs before any addresses another's memory
-  cg::this_cluster().sync();
-  const float scale =
-      sqrtf(cluster_sum(c, block_sum<kThreads>(s, red))) + 1e-30f;
-
-  for (int k = 0; k < r; ++k) {
-    // column k of Q, which still holds column k of m
-    for (int n = tid; n < c.nh; n += kThreads) v[n] = Q[n * c.rp + k];
-    __syncthreads();
-    if (k > 0) {  // (against no columns a pass leaves v as it is)
-      cluster_gs_pass(c, Q, v, c1, k);
-      cluster_gs_pass(c, Q, v, c2, k);
-    }
-    const float nv = sqrtf(cluster_norm2(c, v, red));
-    const bool bad = nv < kRankTol * scale;  // the same in every CTA
-    if (bad) {
-      const int hot = k % N - c.row0;  // row of e_{k mod N} here, if any
-      for (int n = tid; n < c.nh; n += kThreads)
-        e[n] = make_float2(n == hot ? 1.f : 0.f, 0.f);
-      __syncthreads();
-      if (k > 0) {
-        cluster_gs_pass(c, Q, e, c3, k);
-        cluster_gs_pass(c, Q, e, c3, k);
-      }
-      const float ne = sqrtf(cluster_norm2(c, e, red)) + 1e-30f;
-      for (int n = tid; n < c.nh; n += kThreads)
-        Q[n * c.rp + k] = make_float2(e[n].x / ne, e[n].y / ne);
-    } else {
-      for (int n = tid; n < c.nh; n += kThreads)
-        Q[n * c.rp + k] = make_float2(v[n].x / nv, v[n].y / nv);
-    }
-    if (c.rank == 0) {  // column k of R, whole
-      for (int j = tid; j < r; j += kThreads) {
-        float2 rv = make_float2(0.f, 0.f);
-        if (j < k) rv = make_float2(c1[j].x + c2[j].x, c1[j].y + c2[j].y);
-        if (j == k && !bad) rv = make_float2(nv, 0.f);
-        r_out[(size_t)j * r + k] = rv;
-      }
-    }
-    __syncthreads();
-  }
+  cluster_mgs_factor<kThreads, kCluster>(c, Q, c.rank == 0 ? r_out : nullptr,
+                                         N, v, e, c1, c2, c3, red);
   for (int i = tid; i < c.nh * r; i += kThreads) {
     const int n = i / r, j = i - n * r;
     q_out[(size_t)(c.row0 + n) * r + j] = Q[n * c.rp + j];

@@ -1,21 +1,45 @@
-// Device building blocks of the one-block TDVP kernels (lanczos_expm.cu,
-// mgs_qr.cu, site_step.cu): block-wide reductions, the MGS(×2) thin QR, the
-// channel matvec y = fac · Σ_c H_c (x Rt_c), a strided tiled complex matmul,
-// the tridiagonal Taylor exponential and the Lanczos recurrence.
+// Device building blocks of the TDVP kernels (lanczos_expm.cu, mgs_qr.cu,
+// site_step.cu), in two layers.
 //
+// The one-block layer: block-wide reductions, the MGS(×2) thin QR, the
+// channel matvec y = fac · Σ_c H_c (x Rt_c), a strided tiled complex
+// matmul, the tridiagonal Taylor exponential and the Lanczos recurrence.
 // Every function runs in ONE thread block and is called by all of its
 // threads (each contains __syncthreads).  Functions whose loops stride by
 // the block size take it as the template parameter kThreads; the matvec,
 // the matmul and the Lanczos recurrence assume kThreads == kTile * kTile ==
-// 1024.  Layout: complex64 as float2, row-major unless stated.  The
-// definitions sit in an anonymous namespace, so each kernel source gets its
-// own copy (no relocatable device code, no device link).
+// 1024.  Small shapes take this layer (cuda_lanczos.route, cuda_site.route),
+// and the fused site step runs its (r, r) K-Krylov on it.
+//
+// The cluster layer (below the one-block layer): the same recurrence, the
+// matvec and the MGS on ONE thread-block cluster of C CTAs.  Rank q owns
+// rows [q·Mc, min(M, (q+1)·Mc)), Mc = ceil(M / C), of every H_c, of every
+// Krylov vector and of ψ; a rank may own no rows and still reaches every
+// barrier, adding zeros.  Every reduction is a per-CTA partial stored into
+// slot [rank] of each CTA's inbox (distributed shared memory), summed in
+// rank order 0..C-1 after one cluster barrier: every CTA gets the same bits
+// and takes the same branch (convergence, breakdown, dead column), so none
+// leaves a loop alone.  The matvec's only exchange is the gather of the
+// whole x from the peers' shared memory (map_shared_rank); no exchange goes
+// through global memory.  A CTA's rows of H_c sit in its shared memory,
+// loaded once per call where they fit (the Lanczos kernel at the bulk on
+// 16 CTAs, 115 KB), else stream from L2 through a slice of kChunk columns.
+//
+// Layout: complex64 as float2, row-major unless stated.  The definitions
+// sit in an anonymous namespace, so each kernel source gets its own copy
+// (no relocatable device code, no device link).
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <vector>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kTile = 32;  // the tiled products take kTile * kTile threads
 constexpr int kTileThreads = kTile * kTile;
@@ -417,6 +441,564 @@ __device__ void lanczos_result(const float2* prev, float2* out, int n,
     const float2 a = prev[i];
     out[i] = make_float2(a.x * fac, a.y * fac);
   }
+}
+
+// ======================================================== the cluster layer
+
+constexpr int kStrips = 4;  // row strips of the MGS dot products
+
+// One CTA's view of the cluster: its rank, its rows and its inboxes.  A
+// cluster-wide sum fills the inbox of the current parity and flips it; two
+// alternate, so a CTA writes the next sum's partials only after passing the
+// barrier of the previous one, which every CTA reaches only after it has
+// read the inbox that is about to be reused.
+struct ClusterRows {
+  int rank;
+  int size;       // CTAs in the cluster
+  int row0;       // first row held here
+  int nh;         // rows held here (Mc; fewer, or none, in the last CTAs)
+  int r;          // entries of one rank's slot in an inbox (columns of Q)
+  int rp;         // row stride of Q here (MGS): r rounded up to an odd number
+  float2* part;   // [kStrips][r] strip partials of the MGS dot products
+  float2* inbox;  // [2][size][r]
+  int parity;
+
+  // [size][r] inbox of the current sum
+  __device__ float2* box() const { return inbox + parity * size * r; }
+};
+
+// This CTA's view of a cluster over M rows, Mc rows per rank.
+__device__ ClusterRows cluster_rows(int M, int Mc, int r, float2* part,
+                                    float2* inbox) {
+  ClusterRows c;
+  c.rank = (int)cg::this_cluster().block_rank();
+  c.size = (int)cg::this_cluster().num_blocks();
+  c.row0 = c.rank * Mc;
+  c.nh = max(0, min(Mc, M - c.row0));
+  c.r = r;
+  c.rp = r | 1;
+  c.part = part;
+  c.inbox = inbox;
+  c.parity = 0;
+  return c;
+}
+
+// Cluster-wide sum of one complex value per CTA (`part`, the same in every
+// thread of the CTA), returned to every thread of every CTA with the same
+// bits: the partials are added in rank order.  kC: the cluster size when
+// the kernel fixes it at compile time (its loops then unroll), or 0 for
+// c.size; the same below.
+template <int kC = 0>
+__device__ float2 cluster_sum2(ClusterRows& c, float2 part) {
+  const int C = kC > 0 ? kC : c.size;
+  float2* box = c.box();
+  if (threadIdx.x < C)
+    cg::this_cluster().map_shared_rank(box, threadIdx.x)[c.rank * c.r] = part;
+  cg::this_cluster().sync();
+  float2 t = box[0];
+  for (int q = 1; q < C; ++q) {
+    t.x += box[q * c.r].x;
+    t.y += box[q * c.r].y;
+  }
+  c.parity ^= 1;
+  return t;
+}
+
+template <int kC = 0>
+__device__ float cluster_sum(ClusterRows& c, float part) {
+  return cluster_sum2<kC>(c, make_float2(part, 0.f)).x;
+}
+
+// ||x||^2 over the cluster's rows of x (this CTA's nh entries).
+template <int kThreads, int kC = 0>
+__device__ float cluster_norm2(ClusterRows& c, const float2* x, float* red) {
+  float s = 0.f;
+  for (int n = threadIdx.x; n < c.nh; n += kThreads) {
+    const float2 a = x[n];
+    s += a.x * a.x + a.y * a.y;
+  }
+  return cluster_sum<kC>(c, block_sum<kThreads>(s, red));
+}
+
+// One Gram–Schmidt pass of x (this CTA's rows) against Q[:, :k] over all
+// rows: the coefficients cf[j] = <Q_j|x> (partials over each CTA's rows,
+// summed in rank order), then x -= sum_j Q_j cf[j] on this CTA's rows.
+// Q is row-major with an odd row stride, so that both the dot products
+// (threads over j, one row strip per warp) and the update (threads over n)
+// read distinct banks.
+template <int kThreads, int kC = 0>
+__device__ void cluster_gs_pass(ClusterRows& c, const float2* Q, float2* x,
+                                float2* cf, int k) {
+  constexpr int kStripCols = kThreads / kStrips;  // columns per strip round
+  const int C = kC > 0 ? kC : c.size;
+  const int strip = threadIdx.x / kStripCols, jt = threadIdx.x % kStripCols;
+  const int len = (c.nh + kStrips - 1) / kStrips;
+  const int n0 = strip * len, n1 = min(c.nh, n0 + len);
+  for (int j = jt; j < k; j += kStripCols) {
+    float re = 0.f, im = 0.f;
+    for (int n = n0; n < n1; ++n) {
+      const float2 a = Q[n * c.rp + j], b = x[n];
+      re += a.x * b.x + a.y * b.y;  // conj(a) * b
+      im += a.x * b.y - a.y * b.x;
+    }
+    c.part[strip * c.r + j] = make_float2(re, im);
+  }
+  __syncthreads();
+  float2* box = c.box();
+  for (int j = threadIdx.x; j < k; j += kThreads) {
+    float2 t = c.part[j];
+    for (int s = 1; s < kStrips; ++s) {
+      t.x += c.part[s * c.r + j].x;
+      t.y += c.part[s * c.r + j].y;
+    }
+    for (int q = 0; q < C; ++q)
+      cg::this_cluster().map_shared_rank(box, q)[c.rank * c.r + j] = t;
+  }
+  cg::this_cluster().sync();
+  for (int j = threadIdx.x; j < k; j += kThreads) {
+    float2 t = box[j];
+    for (int q = 1; q < C; ++q) {
+      t.x += box[q * c.r + j].x;
+      t.y += box[q * c.r + j].y;
+    }
+    cf[j] = t;
+  }
+  c.parity ^= 1;
+  __syncthreads();
+  for (int n = threadIdx.x; n < c.nh; n += kThreads) {
+    float sr = 0.f, si = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const float2 a = Q[n * c.rp + j], b = cf[j];
+      sr += a.x * b.x - a.y * b.y;
+      si += a.x * b.y + a.y * b.x;
+    }
+    const float2 xv = x[n];
+    x[n] = make_float2(xv.x - sr, xv.y - si);
+  }
+  __syncthreads();
+}
+
+// Thin QR over the cluster by MGS(×2), with mgs_factor's semantics (dead
+// columns completed by e_{k mod N} orthogonalised twice, zero R diagonal).
+// Q (this CTA's nh rows, row stride c.rp, in its shared memory) holds the
+// rows of m on entry and the rows of Q on return; N is the number of rows
+// over the cluster, r = c.r the number of columns.  R (r, r), if not null,
+// receives every column whole (every CTA computes the same values).  A
+// column costs three cluster barriers (two passes and ||v||), six if it is
+// dead.  v and e hold nh entries, c1, c2, c3 r each.
+template <int kThreads, int kC = 0>
+__device__ void cluster_mgs_factor(ClusterRows& c, float2* Q, float2* R,
+                                   int N, float2* v, float2* e, float2* c1,
+                                   float2* c2, float2* c3, float* red) {
+  const int tid = threadIdx.x, r = c.r;
+  __syncthreads();
+  float s = 0.f;
+  for (int i = tid; i < c.nh * r; i += kThreads) {
+    const int n = i / r, j = i - n * r;
+    const float2 a = Q[n * c.rp + j];
+    s += a.x * a.x + a.y * a.y;
+  }
+  // every CTA of the cluster runs before any addresses another's memory
+  cg::this_cluster().sync();
+  const float scale =
+      sqrtf(cluster_sum<kC>(c, block_sum<kThreads>(s, red))) + 1e-30f;
+
+  for (int k = 0; k < r; ++k) {
+    // column k of Q, which still holds column k of m
+    for (int n = tid; n < c.nh; n += kThreads) v[n] = Q[n * c.rp + k];
+    __syncthreads();
+    if (k > 0) {  // (against no columns a pass leaves v as it is)
+      cluster_gs_pass<kThreads, kC>(c, Q, v, c1, k);
+      cluster_gs_pass<kThreads, kC>(c, Q, v, c2, k);
+    }
+    const float nv = sqrtf(cluster_norm2<kThreads, kC>(c, v, red));
+    const bool bad = nv < kRankTol * scale;  // the same in every CTA
+    if (bad) {
+      const int hot = k % N - c.row0;  // row of e_{k mod N} here, if any
+      for (int n = tid; n < c.nh; n += kThreads)
+        e[n] = make_float2(n == hot ? 1.f : 0.f, 0.f);
+      __syncthreads();
+      if (k > 0) {
+        cluster_gs_pass<kThreads, kC>(c, Q, e, c3, k);
+        cluster_gs_pass<kThreads, kC>(c, Q, e, c3, k);
+      }
+      const float ne = sqrtf(cluster_norm2<kThreads, kC>(c, e, red)) + 1e-30f;
+      for (int n = tid; n < c.nh; n += kThreads)
+        Q[n * c.rp + k] = make_float2(e[n].x / ne, e[n].y / ne);
+    } else {
+      for (int n = tid; n < c.nh; n += kThreads)
+        Q[n * c.rp + k] = make_float2(v[n].x / nv, v[n].y / nv);
+    }
+    if (R != nullptr) {  // column k of R, whole
+      for (int j = tid; j < r; j += kThreads) {
+        float2 rv = make_float2(0.f, 0.f);
+        if (j < k) rv = make_float2(c1[j].x + c2[j].x, c1[j].y + c2[j].y);
+        if (j == k && !bad) rv = make_float2(nv, 0.f);
+        R[(size_t)j * r + k] = rv;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Copies every peer's rows of a row-major (M, r) matrix, held as xs in
+// each CTA's shared memory (rank q's rows at xs + q Mc r), into this CTA's
+// xs.  The caller has passed a cluster barrier since every CTA wrote its
+// rows.
+template <int kThreads>
+__device__ void cluster_gather(const ClusterRows& c, float2* xs, int M,
+                               int Mc, int r) {
+  for (int q = 0; q < c.size; ++q) {
+    if (q == c.rank) continue;
+    const int i0 = min(M, q * Mc) * r, i1 = min(M, (q + 1) * Mc) * r;
+    const float2* src = cg::this_cluster().map_shared_rank(xs, q);
+    for (int i = i0 + threadIdx.x; i < i1; i += kThreads) xs[i] = src[i];
+  }
+  __syncthreads();
+}
+
+constexpr int kChunk = 32;  // depth of one staged slice of H's rows
+
+// Copies this CTA's nc nh rows of H (nc, M, M), columns [k0, k0 + kn),
+// into stage (row stride ks: odd, so rows two apart sit in other banks),
+// coalesced; columns past kn up to kc are zeroed.
+template <int kThreads>
+__device__ void stage_rows(const float2* __restrict__ H, float2* stage,
+                           int nc, int M, int row0, int nh, int k0, int kn,
+                           int kc, int ks) {
+  for (int e = threadIdx.x; e < nc * nh * kc; e += kThreads) {
+    const int row = e / kc, kk = e - row * kc;
+    const int c = row / nh, i = row - c * nh;
+    stage[row * ks + kk] = kk < kn
+        ? H[((size_t)c * M + row0 + i) * M + k0 + kk] : make_float2(0.f, 0.f);
+  }
+}
+
+// T[c][i][j] = sum_k H_c[row0 + i][k] x[k][j] for this CTA's nh rows: H
+// (nc, M, M) in device memory, x (M, r) whole in shared memory, T (nc, nh,
+// r).  The CTA's rows of H come from stage: all M columns, loaded once by
+// the caller (resident: row stride M + 1, stage_rows), or kChunk columns
+// at a time loaded here (row stride kChunk + 1).  Each thread computes a
+// 2 x 2 tile (rows ci, ci + 1 of the nc nh rows, columns j, j + 1), so one
+// read of H and of x feeds two products each.  (A bulk Lanczos iteration
+// on 16 CTAs took 0.063 ms with one output per thread and H read straight
+// from device memory, 0.054 ms with 2 x 2 tiles and slices, 0.043 ms with
+// the rows resident; chip_smoke.py, PERF.md §6.)
+template <int kThreads>
+__device__ void rows_times_x(const float2* __restrict__ H, const float2* xs,
+                             float2* T, float2* stage, int nc, int M,
+                             int row0, int nh, int r, bool resident) {
+  const int rows = nc * nh, rp = (rows + 1) / 2, cp = (r + 1) / 2;
+  const int kc = resident ? M : kChunk, ks = kc + 1;
+  for (int base = 0; base < rp * cp; base += kThreads) {
+    const int idx = base + threadIdx.x;
+    const bool mine = idx < rp * cp;
+    const int ci = mine ? 2 * (idx / cp) : 0;
+    const int j = mine ? 2 * (idx - (idx / cp) * cp) : 0;
+    const bool row2 = ci + 1 < rows, col2 = j + 1 < r;
+    const float2* h0 = stage + (size_t)ci * ks;
+    const float2* h1 = h0 + (row2 ? ks : 0);
+    float2 t00 = make_float2(0.f, 0.f), t01 = t00, t10 = t00, t11 = t00;
+    for (int k0 = 0; k0 < M; k0 += kc) {
+      const int kn = min(kc, M - k0);
+      if (!resident) {
+        __syncthreads();  // the previous slice is no longer read
+        stage_rows<kThreads>(H, stage, nc, M, row0, nh, k0, kn, kc, ks);
+        __syncthreads();
+      }
+      if (mine) {
+#pragma unroll 4
+        for (int kk = 0; kk < kn; ++kk) {
+          const float2* xr = xs + (k0 + kk) * r + j;
+          const float2 x0 = xr[0], x1 = col2 ? xr[1] : x0;
+          const float2 a = h0[kk], b = h1[kk];
+          t00.x += a.x * x0.x - a.y * x0.y;
+          t00.y += a.x * x0.y + a.y * x0.x;
+          t01.x += a.x * x1.x - a.y * x1.y;
+          t01.y += a.x * x1.y + a.y * x1.x;
+          t10.x += b.x * x0.x - b.y * x0.y;
+          t10.y += b.x * x0.y + b.y * x0.x;
+          t11.x += b.x * x1.x - b.y * x1.y;
+          t11.y += b.x * x1.y + b.y * x1.x;
+        }
+      }
+    }
+    if (mine) {
+      T[(size_t)ci * r + j] = t00;
+      if (col2) T[(size_t)ci * r + j + 1] = t01;
+      if (row2) T[(size_t)(ci + 1) * r + j] = t10;
+      if (row2 && col2) T[(size_t)(ci + 1) * r + j + 1] = t11;
+    }
+  }
+}
+
+// y[i][j] = fac · sum_c sum_m T[c][i][m] Rt_c[m][j], i < nh: the second
+// product of the matvec, row-local.
+template <int kThreads>
+__device__ void rows_times_rt(const float2* T, const float2* __restrict__ Rt,
+                              float2* y, int nc, int nh, int r, float fac) {
+  for (int idx = threadIdx.x; idx < nh * r; idx += kThreads) {
+    const int i = idx / r, j = idx - i * r;
+    float sr = 0.f, si = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const float2* t = T + ((size_t)c * nh + i) * r;
+      const float2* rt = Rt + (size_t)c * r * r + j;
+      for (int m = 0; m < r; ++m) {
+        const float2 a = t[m], b = __ldg(rt + (size_t)m * r);
+        sr += a.x * b.x - a.y * b.y;
+        si += a.x * b.y + a.y * b.x;
+      }
+    }
+    y[idx] = make_float2(sr * fac, si * fac);
+  }
+}
+
+// The operator of a cluster Lanczos run: y = fac · sum_c H_c (x Rt_c),
+// Mc rows of H_c per rank.
+struct ClusterOp {
+  const float2* H;   // (nc, M, M), device memory
+  const float2* Rt;  // (nc, r, r), device memory
+  float2* stage;     // shared memory: the CTA's rows of H (rows_times_x)
+  int nc, M, r, Mc;
+  float fac;
+  bool resident;     // stage holds all M columns, loaded once
+};
+
+// y (this CTA's rows) = the operator applied to x, whose rows each CTA has
+// written into its own rows of xs (M, r).  Starts with the cluster barrier
+// that makes the peers' rows readable, gathers them, then runs both
+// products on this CTA's rows.  T holds (nc, Mc, r).
+template <int kThreads>
+__device__ void cluster_matvec(ClusterRows& c, const ClusterOp& op,
+                               float2* xs, float2* T, float2* y) {
+  cg::this_cluster().sync();
+  cluster_gather<kThreads>(c, xs, op.M, op.Mc, op.r);
+  rows_times_x<kThreads>(op.H, xs, T, op.stage, op.nc, op.M, c.row0, c.nh,
+                         op.r, op.resident);
+  __syncthreads();
+  rows_times_rt<kThreads>(T, op.Rt, y, op.nc, c.nh, op.r, op.fac);
+  __syncthreads();
+}
+
+// lanczos_run over the cluster: the same recurrence, sums and decisions,
+// each CTA on its own rows.  v_in: this CTA's rows (nh r entries).  V:
+// this CTA's rows of the kmax + 1 Krylov vectors, Mc r apart, in device
+// memory of its own (only this CTA reads them).  prev and w: its rows, in
+// shared memory; xs (M, r) the gathered matvec input, T the matvec's
+// intermediate.  alpha, beta, coef kMaxK each, red kThreads / 32.  Four
+// cluster barriers an iteration: the matvec's gather, alpha, beta and the
+// error.  Every CTA runs tridiag_expm_e0 (warp 0) on the same alpha and
+// beta bits, so all stop at the same k.  The caller has passed a cluster
+// barrier since the kernel started.
+template <int kThreads>
+__device__ KrylovRun cluster_lanczos_run(ClusterRows& c, const ClusterOp& op,
+                                         const float2* v_in, float2* V,
+                                         float2* prev, float2* w, float2* xs,
+                                         float2* T, int kmax, float sre,
+                                         float sim, float thresh,
+                                         float* alpha, float* beta,
+                                         float2* coef, float2* red) {
+  const int tid = threadIdx.x, n = c.nh * op.r;
+  const size_t slot = (size_t)op.Mc * op.r;
+  float2* xo = xs + (size_t)c.row0 * op.r;  // this CTA's rows of x
+  if (op.resident)  // (read first after the matvec's barriers)
+    stage_rows<kThreads>(op.H, op.stage, op.nc, op.M, c.row0, c.nh, 0, op.M,
+                         op.M, op.M + 1);
+  float s = 0.f;
+  for (int i = tid; i < n; i += kThreads) {
+    const float2 a = v_in[i];
+    s += a.x * a.x + a.y * a.y;
+  }
+  const float beta0 =
+      sqrtf(cluster_sum(c, block_sum2<kThreads>(s, 0.f, red).x));
+  for (int i = tid; i < n; i += kThreads) {
+    const float2 a = v_in[i];
+    const float2 v0 = make_float2(a.x / beta0, a.y / beta0);
+    V[i] = v0;
+    xo[i] = v0;
+    prev[i] = make_float2(0.f, 0.f);
+  }
+
+  int k_fin = 0;
+  bool bad = false;
+  for (int k = 0; k < kmax; ++k) {
+    const float2* vk = V + k * slot;
+    cluster_matvec<kThreads>(c, op, xs, T, w);
+    // oblique alpha = <v_0|H v_k>
+    float ar = 0.f, ai = 0.f;
+    for (int i = tid; i < n; i += kThreads) {
+      const float2 a = V[i], b = w[i];
+      ar += a.x * b.x + a.y * b.y;
+      ai += a.x * b.y - a.y * b.x;
+    }
+    const float2 al = cluster_sum2(c, block_sum2<kThreads>(ar, ai, red));
+    const float bprev = k > 0 ? beta[k - 1] : 0.f;
+    float s2 = 0.f;
+    for (int i = tid; i < n; i += kThreads) {
+      const float2 a = vk[i];
+      float2 x = w[i];
+      x.x -= al.x * a.x - al.y * a.y;
+      x.y -= al.x * a.y + al.y * a.x;
+      if (k > 0) {
+        const float2 b = V[(k - 1) * slot + i];
+        x.x -= bprev * b.x;
+        x.y -= bprev * b.y;
+      }
+      w[i] = x;
+      s2 += x.x * x.x + x.y * x.y;
+    }
+    const float bk =
+        sqrtf(cluster_sum(c, block_sum2<kThreads>(s2, 0.f, red).x));
+    const bool live = bk > kEpsBreakdown;
+    // every peer finished gathering x before the alpha barrier, so this
+    // CTA's rows of xs may now take the next input
+    float2* vn = V + (k + 1) * slot;
+    for (int i = tid; i < n; i += kThreads) {
+      const float2 x = w[i];
+      const float2 v =
+          live ? make_float2(x.x / bk, x.y / bk) : make_float2(0.f, 0.f);
+      vn[i] = v;
+      xo[i] = v;
+    }
+    if (tid == 0) {
+      alpha[k] = al.x;
+      beta[k] = live ? bk : 0.f;
+    }
+    __syncthreads();
+    if (tid < 32) tridiag_expm_e0(alpha, beta, k, sre, sim, coef);
+    __syncthreads();
+    // psi(k) = sum_{j <= k} coef_j v_j; err = ||psi(k) - psi(k-1)||
+    float e2 = 0.f;
+    for (int i = tid; i < n; i += kThreads) {
+      float pr = 0.f, pi = 0.f;
+      for (int j = 0; j <= k; ++j) {
+        const float2 cj = coef[j], a = V[j * slot + i];
+        pr += cj.x * a.x - cj.y * a.y;
+        pi += cj.x * a.y + cj.y * a.x;
+      }
+      const float2 p = prev[i];
+      const float dr = pr - p.x, di = pi - p.y;
+      e2 += dr * dr + di * di;
+      prev[i] = make_float2(pr, pi);
+    }
+    const float err =
+        sqrtf(cluster_sum(c, block_sum2<kThreads>(e2, 0.f, red).x));
+    const bool conv = k > 0 && err < thresh;
+    const bool capped = k + 1 >= kmax;
+    k_fin = k + 1;
+    if (conv || !live || capped) {
+      bad = capped && !conv && live;
+      break;
+    }
+  }
+  return KrylovRun{k_fin, bad, beta0};
+}
+
+// lanczos_result over the cluster: out (this CTA's rows) = prev ·
+// (conserve ? 1 / ||prev|| : beta0), the norm a cluster sum.
+template <int kThreads>
+__device__ void cluster_lanczos_result(ClusterRows& c, const float2* prev,
+                                       float2* out, int n, int conserve,
+                                       float beta0, float2* red) {
+  float p2 = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float2 a = prev[i];
+    p2 += a.x * a.x + a.y * a.y;
+  }
+  const float fac =
+      conserve
+          ? 1.f / sqrtf(cluster_sum(c, block_sum2<kThreads>(p2, 0.f, red).x))
+          : beta0;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float2 a = prev[i];
+    out[i] = make_float2(a.x * fac, a.y * fac);
+  }
+}
+
+// Makes `kernel`'s cluster launch `cfg` ready on `device`, once per
+// (device, kernel, C, bytes): raises the kernel's dynamic shared memory
+// limit to the largest size asked for so far (never lowering it under a
+// size already made ready), allows the non-portable sizes above 8, and
+// checks with cudaOccupancyMaxActiveClusters that the card can hold one
+// such cluster (cudaErrorInvalidClusterSize if not; a refused shape is
+// not remembered, so it is refused again).  Later launches of a ready
+// shape find it in the table and touch no attribute.  A mutex guards the
+// table: host threads may launch at once.
+template <class Kernel>
+cudaError_t cluster_ready(int device, Kernel kernel,
+                          const cudaLaunchConfig_t& cfg) {
+  struct Limit {  // what is set on one kernel on one device
+    int device;
+    const void* fn;
+    size_t smem;
+    bool nonportable;
+  };
+  struct Ready {
+    int device;
+    const void* fn;
+    unsigned size;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Limit> limits;
+  static std::vector<Ready> ready;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  const unsigned size = cfg.gridDim.x;
+  const size_t smem = cfg.dynamicSmemBytes;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Ready& e : ready)
+    if (e.device == device && e.fn == fn && e.size == size && e.smem == smem)
+      return cudaSuccess;
+  size_t i = 0;
+  while (i < limits.size() && !(limits[i].device == device &&
+                                limits[i].fn == fn))
+    ++i;
+  if (i == limits.size()) limits.push_back(Limit{device, fn, 0, false});
+  cudaError_t err;
+  if (smem > limits[i].smem) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    limits[i].smem = smem;
+  }
+  if (size > 8 && !limits[i].nonportable) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    limits[i].nonportable = true;
+  }
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidClusterSize;
+  ready.push_back(Ready{device, fn, size, smem});
+  return cudaSuccess;
+}
+
+// Launches `kernel` on `device` (the current device) as ONE cluster of C
+// CTAs of `threads` threads with `smem` bytes of dynamic shared memory
+// each, after cluster_ready.  Returns a CUDA error code;
+// cudaErrorInvalidClusterSize when no such cluster fits.
+template <class Kernel, class... Args>
+cudaError_t launch_cluster(int device, Kernel kernel, int C, int threads,
+                           size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cluster_ready(device, kernel, cfg);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace

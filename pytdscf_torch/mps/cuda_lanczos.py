@@ -26,15 +26,31 @@ JAX package's ``eigh`` form to ~1e-11 relative in complex128.
 
 What bounds the kernel on the H100 is the matvec: 7.8 M complex
 multiply-adds at the chain's bulk site (nc = 4, M = 240, r = 30), a few
-times per call, in sequence.  This first version runs the whole recurrence
-in one block of 1024 threads (plain fp32 FMA, tiled through shared
-memory), so it is bound by one SM's FP32 rate; the Krylov vectors and the
-(1.8 MB) channels sit in L2, in device-memory scratch the wrapper
-allocates.  Spreading the matvec over more SMs is later work.
+times per call, in sequence, about 120 µs each at one SM's fp32 peak.
+:func:`route` picks one of two routes by shape (see the source note in
+``csrc/lanczos_expm.cu``):
+
+* ``"cluster"``: one thread-block cluster of C CTAs runs the whole
+  recurrence, rank q owning ceil(M / C) rows of every H_c, Krylov vector
+  and ψ; each matvec gathers x over distributed shared memory, and every
+  reduction is summed in rank order, so all CTAs take the same
+  convergence and breakdown branch.  C is 16 or 8 by shape
+  (:func:`cluster_size`): the largest that leaves each CTA at least
+  :data:`MIN_ROWS_PER_CTA` rows.
+* ``"block"``: one block of 1024 threads on one SM, for the shapes that
+  leave too few rows to any cluster (the chain's edge sites).
+
+On an H100 the bulk H step takes 0.23 ms on 16 CTAs against 3.17 ms on one
+block, the (30, 30) K step 0.100 ms on 8 against 0.134 (PERF.md §6).
+
+Both hold the Krylov vectors in device-memory scratch that the wrapper
+allocates.  Neither falls back to the other: a cluster that the card
+cannot schedule raises.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -56,6 +72,86 @@ MAX_KRYLOV = 32
 #: channels holds 67 MB of H_c alone and runs the einsum route instead (the
 #: JAX package's 60 MB gate, ``pallas_lanczos.fits``).
 MAX_BYTES = 60 * 2**20
+
+
+#: Cluster sizes of the cluster route, largest first (16 is a
+#: non-portable size, which the H100 schedules).
+CLUSTERS = (16, 8)
+#: The largest, which the fused site kernel takes (``cuda_site``).
+CLUSTER = CLUSTERS[0]
+#: Fewest rows each CTA of a cluster must own: :func:`cluster_size` takes
+#: the largest size of :data:`CLUSTERS` that leaves every CTA this many,
+#: and a shape that no size does runs on one block.  Set from
+#: ``chip_smoke.py``'s route sweep over every Lanczos shape of a chain step
+#: (H100 80GB HBM3, 700 W; PERF.md §6): the bulk H step (240, 30) 0.232 ms
+#: on 16 CTAs, 0.437 on 8, 3.17 on one block; the (30, 30) K step 0.100
+#: on 8, 0.112 on 16, 0.134 on one block; the edge (8, 8) steps fastest on
+#: one block.  A step's Lanczos calls so routed took 120.78 ms of device
+#: time, against 120.74 with each shape on its fastest route.
+MIN_ROWS_PER_CTA = 4
+#: The kernel's routes.
+ROUTES = ("block", "cluster")
+#: Columns of H's rows that the cluster route stages in shared memory at a
+#: time where the rows do not fit whole (``tdvp_device.cuh:kChunk``).
+CHUNK = 32
+#: Dynamic shared memory one CTA may ask for on Hopper (bytes): the 227 KB
+#: a block can use, less a margin for the static buffers.
+MAX_SMEM = 232_448 - 1024
+
+
+def smem_bytes(nc: int, M: int, r: int, cluster: int = CLUSTER,
+               resident: bool = False) -> int:
+    """Dynamic shared memory of one CTA of the cluster route: x gathered
+    whole (M·r complex64), the matvec's intermediate (nc·Mc·r), w and prev
+    (Mc·r each), the CTA's nc·Mc rows of H (all M columns when
+    ``resident``, else a slice of :data:`CHUNK`; rows padded by one) and
+    two inboxes of ``cluster`` partials, Mc = ceil(M / C)
+    (``lanczos_expm.cu:pytdscf_lanczos_expm_cluster_c64``)."""
+    mc = -(-M // cluster)
+    cols = (M if resident else CHUNK) + 1
+    return 8 * (M * r + (nc + 2) * mc * r + nc * mc * cols + 2 * cluster)
+
+
+def cluster_size(M: int, r: int, nc: int) -> int | None:
+    """The cluster size of an (M, r) Krylov vector over ``nc`` channels:
+    the largest of :data:`CLUSTERS` whose CTAs each own at least
+    :data:`MIN_ROWS_PER_CTA` rows and whose shared memory fits, else None
+    (the one-block route)."""
+    for size in CLUSTERS:
+        if (-(-M // size) >= MIN_ROWS_PER_CTA
+                and smem_bytes(nc, M, r, size) <= MAX_SMEM):
+            return size
+    return None
+
+
+def route(M: int, r: int, nc: int) -> str:
+    """The route of an (M, r) Krylov vector over ``nc`` channels:
+    ``"cluster"`` where :func:`cluster_size` finds a size, else
+    ``"block"`` (whose buffers are static)."""
+    return "block" if cluster_size(M, r, nc) is None else "cluster"
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M: int, r: int, nc: int, kmax: int, way: str | None = None,
+         cluster: int | None = None) -> tuple[str, int, bool, int]:
+    """What one launch needs, worked out once per shape: ``(way, C,
+    resident, scratch)``.  ``way`` and ``cluster`` default to the
+    shape's :func:`route` and :func:`cluster_size`; ``resident``: the
+    CTA's rows of H stay in its shared memory; ``scratch``: complex64
+    entries of device scratch.  Raises ValueError where the route does not
+    take the shape."""
+    if way is None:
+        way = route(M, r, nc)
+    if way not in ROUTES:
+        raise ValueError(f"unknown lanczos_expm route {way!r}")
+    if way == "block":
+        return way, 1, False, (kmax + 3 + nc) * M * r
+    size = cluster or cluster_size(M, r, nc) or CLUSTER
+    if smem_bytes(nc, M, r, size) > MAX_SMEM:
+        raise ValueError(f"lanczos_expm: ({M}, {r}) with {nc} channels "
+                         f"does not fit a cluster of {size} CTAs")
+    resident = smem_bytes(nc, M, r, size, resident=True) <= MAX_SMEM
+    return way, size, resident, size * (kmax + 1) * -(-M // size) * r
 
 
 def heff_channels(L, W, R, fac=None):
@@ -174,13 +270,19 @@ def lanczos_expm_plain(H, Rt, v, scale: complex, thresh: float, kmax: int,
 
 
 def lanczos_expm(ch, v, scale: complex, thresh: float, max_dim: int,
-                 conserve: bool):
+                 conserve: bool, *, way: str | None = None,
+                 cluster: int | None = None):
     """``exp(scale·H)·v`` for the channels ``ch = (H, Rt)`` and ψ ``v``
     (M, r); returns ``(ψ', status)``, ``status = [k_used, bad]`` (int32).
 
-    A CUDA tensor goes through the kernel (complex64, contiguous, k_max ≤
-    32, or this raises); a CPU tensor through :func:`lanczos_expm_plain`.
-    ``lanczos_expm.launches`` counts kernel launches,
+    A CUDA tensor goes through the kernel of its :func:`route` and
+    :func:`cluster_size` (or of ``way``, ``"block"`` or ``"cluster"`` of
+    ``cluster`` CTAs, to compare them): complex64, contiguous, k_max ≤ 32,
+    or this raises, as it does when the card cannot schedule the cluster.
+    A CPU tensor goes through :func:`lanczos_expm_plain`.
+    ``lanczos_expm.launches`` counts kernel launches
+    (``lanczos_expm.route_launches`` by route,
+    ``lanczos_expm.cluster_launches`` the cluster route's by size),
     ``lanczos_expm.plain_calls`` the CPU calls.
     """
     H, Rt = ch
@@ -210,22 +312,31 @@ def lanczos_expm(ch, v, scale: complex, thresh: float, max_dim: int,
             raise ValueError(f"the CUDA lanczos_expm takes a contiguous {name}")
     if kmax > MAX_KRYLOV:
         raise ValueError(f"the CUDA lanczos_expm takes max_dim <= {MAX_KRYLOV}")
+    way, size, resident, nscratch = plan(M, r, nc, kmax, way, cluster)
     out = torch.empty_like(v)
     status = torch.empty(2, dtype=torch.int32, device=v.device)
-    scratch = torch.empty(
-        (kmax + 3 + nc) * M * r, dtype=torch.complex64, device=v.device
-    )
+    scratch = torch.empty(nscratch, dtype=torch.complex64, device=v.device)
     scale = complex(scale)
-    code = _cuda.load().pytdscf_lanczos_expm_c64(
-        v.device.index, H.data_ptr(), Rt.data_ptr(), v.data_ptr(),
-        out.data_ptr(), status.data_ptr(), scratch.data_ptr(), nc, M, r, kmax,
-        scale.real, scale.imag, float(thresh), int(bool(conserve)),
-        torch.cuda.current_stream(v.device).cuda_stream,
-    )
-    _cuda.check(code, "lanczos_expm")
+    lib = _cuda.load()
+    args = (v.device.index, H.data_ptr(), Rt.data_ptr(), v.data_ptr(),
+            out.data_ptr(), status.data_ptr(), scratch.data_ptr(), nc, M, r,
+            kmax, scale.real, scale.imag, float(thresh), int(bool(conserve)))
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    if way == "cluster":
+        code = lib.pytdscf_lanczos_expm_cluster_c64(*args, size, int(resident),
+                                                    stream)
+    else:
+        code = lib.pytdscf_lanczos_expm_c64(*args, stream)
+    _cuda.check(code, f"lanczos_expm ({way} route)")
     lanczos_expm.launches += 1
+    lanczos_expm.route_launches[way] += 1
+    if way == "cluster":
+        lanczos_expm.cluster_launches[size] = (
+            lanczos_expm.cluster_launches.get(size, 0) + 1)
     return out, status
 
 
 lanczos_expm.launches = 0
+lanczos_expm.route_launches = dict.fromkeys(ROUTES, 0)
+lanczos_expm.cluster_launches = {}
 lanczos_expm.plain_calls = 0

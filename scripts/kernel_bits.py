@@ -4,25 +4,33 @@
 Runs the kernels of the ``pytdscf_torch`` package found under ROOT on
 fixed inputs (seeded with numpy) through their wrappers and saves every
 output: the Lanczos kernel at the 184-site chain's shapes (the H step at
-(240, 30) with 4 channels, the K step at (30, 30)), the MGS QR at (240, 30)
+(240, 30) with 4 channels, the K step at (30, 30)) through its own route
+(``lanczos_*``) and through the one-block route (``lanczos_block_*``), the
+fused site kernel at the chain's bulk shape in both directions, likewise
+(``site_*``, ``site_block_*``; a package whose wrappers take no route runs
+its only one in both), the MGS QR at (240, 30)
 full rank and rank deficient and at (1024, 64), the relaxed matvecs
 ``heff_lo`` and ``keff_lo`` and the bf16x3 chain in its four mappings
 (``chain_left``, ``chain_right``, ``chain_heff``, ``chain_keff``) at the
 χ=1024 radical pair's bulk shape and a ragged one.  ``compare`` exits 1
 unless two such files are equal bit for bit, except for the outputs named
 by ``--expect-differ`` (comma-separated prefixes of output names), which
-may differ.  On a machine with an NVIDIA
+may differ or be missing from one file.  On a machine with an NVIDIA
 GPU and nvcc, e.g. for a checkout of the parent commit unpacked under
 ``parent/``:
 
     python3 scripts/kernel_bits.py dump parent out/parent.npz
     python3 scripts/kernel_bits.py dump . out/this.npz
     python3 scripts/kernel_bits.py compare out/parent.npz out/this.npz \
-        --expect-differ heff,chain
+        --expect-differ lanczos_h,lanczos_k,site_fwd,site_bwd
+
+(one script, this one, dumps both trees, so their outputs have the same
+names).
 """
 
 from __future__ import annotations
 
+import inspect
 import sys
 from pathlib import Path
 
@@ -34,6 +42,12 @@ def _cx(rng, *shape):
     return a / np.linalg.norm(a)
 
 
+def _block(fn) -> dict:
+    """The keyword that sends ``fn`` through its one-block route, or none
+    for a package whose wrapper has no route to choose."""
+    return {"way": "block"} if "way" in inspect.signature(fn).parameters else {}
+
+
 def dump(root: str, path: str) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
@@ -42,6 +56,7 @@ def dump(root: str, path: str) -> None:
     from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_qr as CQ
     from pytdscf_torch.mps import cuda_renorm as CR
+    from pytdscf_torch.mps import cuda_site as CS
 
     def t(a):
         return torch.as_tensor(a).to("cuda", torch.complex64).contiguous()
@@ -55,11 +70,26 @@ def dump(root: str, path: str) -> None:
     W = 0.5 * (W + W.transpose(0, 2, 1, 3).conj())
     psi = _cx(rng, 240, 30)
     ch = CL.heff_channels(t(L), t(W), t(R))
-    out, st = CL.lanczos_expm(ch, t(psi), -0.1j, 1e-6, 10, True)
-    res["h_out"], res["h_status"] = out.cpu().numpy(), st.cpu().numpy()
     kch = CL.keff_channels(t(L), t(R))
-    out, st = CL.lanczos_expm(kch, t(_cx(rng, 30, 30)), 0.1j, 1e-6, 10, False)
-    res["k_out"], res["k_status"] = out.cpu().numpy(), st.cpu().numpy()
+    sig = t(_cx(rng, 30, 30))
+    for tag, kw in (("", {}), ("block_", _block(CL.lanczos_expm))):
+        out, st = CL.lanczos_expm(ch, t(psi), -0.1j, 1e-6, 10, True, **kw)
+        res[f"lanczos_{tag}h_out"] = out.cpu().numpy()
+        res[f"lanczos_{tag}h_status"] = st.cpu().numpy()
+        out, st = CL.lanczos_expm(kch, sig, 0.1j, 1e-6, 10, False, **kw)
+        res[f"lanczos_{tag}k_out"] = out.cpu().numpy()
+        res[f"lanczos_{tag}k_status"] = st.cpu().numpy()
+    # the fused site update at the bulk, (30, 8, 30) with 4 channels
+    site, nxt = t(_cx(rng, 30, 8, 30)), t(_cx(rng, 30, 8, 30))
+    logs = (torch.tensor(0.37, device="cuda"),
+            torch.tensor(-0.21, device="cuda"))
+    for tag, kw in (("", {}), ("block_", _block(CS.site_step_fused))):
+        for way in ("fwd", "bwd"):
+            got = CS.site_step_fused(
+                site, nxt, t(L), t(W), t(R), -0.1j, 1e-6, *logs,
+                forward=way == "fwd", max_dim=10, conserve=True, **kw)
+            for name, a in zip(("q", "next", "blocks", "log", "status"), got):
+                res[f"site_{tag}{way}_{name}"] = a.cpu().numpy()
     full = _cx(rng, 240, 30)
     deficient = full.copy()
     deficient[:, [3, 7, 29]] = 0.0
@@ -99,17 +129,18 @@ def dump(root: str, path: str) -> None:
 
 def compare(a: str, b: str, expect_differ: tuple[str, ...] = ()) -> int:
     fa, fb = np.load(a), np.load(b)
-    bad = [k for k in fa.files
-           if k not in fb.files or fa[k].tobytes() != fb[k].tobytes()]
+    names = sorted(set(fa.files) | set(fb.files))
+    bad = [k for k in names if k not in fa.files or k not in fb.files
+           or fa[k].tobytes() != fb[k].tobytes()]
     unexpected = [k for k in bad if not k.startswith(expect_differ)]
-    print(f"kernel_bits: {len(fa.files) - len(bad)}/{len(fa.files)} outputs "
+    print(f"kernel_bits: {len(names) - len(bad)}/{len(names)} outputs "
           f"identical bit for bit; differ: {bad} (expected to differ: "
           f"{list(expect_differ)}; unexpected: {unexpected})")
     for k in bad:
-        if k in fb.files and fa[k].shape == fb[k].shape:
+        if k in fa.files and k in fb.files and fa[k].shape == fb[k].shape:
             d = np.abs(fa[k] - fb[k]).max() / max(np.abs(fa[k]).max(), 1e-30)
             print(f"kernel_bits: {k}: max |Δ| / max |a| = {d:.3e}")
-    return 1 if unexpected or set(fa.files) != set(fb.files) else 0
+    return 1 if unexpected else 0
 
 
 if __name__ == "__main__":

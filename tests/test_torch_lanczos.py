@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cluster_replay as replay
 from pytdscf_torch.mps import cuda_lanczos as CL
 from pytdscf_torch.mps import kernels as TK
 
@@ -196,6 +197,62 @@ def test_wrapper_runs_plain_version_on_cpu():
         CL.lanczos_expm(ch, v.reshape(5, 12), -0.2j, 1e-6, 10, True)
 
 
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("shape,conserve", [
+    ((1, 8, 8, 4), True), ((3, 8, 5, 3), False), ((9, 3, 5, 3), True),
+    ((30, 8, 30, 4), True),
+])
+def test_cluster_replay_matches_plain_c128(shape, conserve, C):
+    """The cluster route's algorithm (row split with empty ranks, the x
+    gather, rank-ordered partial sums; ``tests/torch_cluster_replay.py``)
+    at M = 8, 24, 27 and 240, with M < C and M mod C != 0 among them,
+    equals the plain version in complex128."""
+    l, d, r, w = shape
+    M = l * d
+    psi, L, W, R = _rand_site(43, l, d, r, w)
+    c = torch.complex128
+    H, Rt = CL.heff_channels(_t(L, c), _t(W, c), _t(R, c))
+    v = _t(psi, c).reshape(M, r)
+    splits = replay.row_split(M, C)
+    # consecutive rows, all of them; ranks past the end own none
+    assert [s.start for s in splits[1:]] == [s.stop for s in splits[:-1]]
+    assert splits[-1].stop == M
+    rows, st = replay.lanczos(H, Rt, v, -0.5j, 1e-6, 10, conserve, C)
+    ref, st_ref = CL.lanczos_expm_plain(H, Rt, v, -0.5j, 1e-6, 10, conserve)
+    assert st == st_ref.tolist()
+    assert float(torch.max(torch.abs(replay.gather(rows) - ref))) < 1e-12
+
+
+def test_route_by_shape():
+    """The chain's H steps (M = l·d ≥ 64) take clusters of 16, its (30, 30)
+    K steps clusters of 8, the edge sites (M = 8) one block: each the
+    largest size that leaves every CTA MIN_ROWS_PER_CTA rows.  A cluster
+    route's shared memory counts the gathered x, the intermediate and its
+    own rows."""
+    for M, r, nc in ((240, 30, 4), (90, 30, 4), (64, 30, 4), (240, 8, 3)):
+        assert CL.route(M, r, nc) == "cluster"
+        assert CL.cluster_size(M, r, nc) == 16
+    assert CL.route(30, 30, 4) == "cluster"
+    assert CL.cluster_size(30, 30, 4) == 8
+    assert CL.route(8, 8, 3) == "block"
+    assert CL.cluster_size(8, 8, 3) is None
+    assert CL.plan(30, 30, 4, 10) == ("cluster", 8, True, 8 * 11 * 4 * 30)
+    assert CL.plan(8, 8, 3, 10) == ("block", 1, False, 16 * 8 * 8)
+    assert CL.plan(30, 30, 4, 10, "cluster", 16)[:2] == ("cluster", 16)
+    assert CL.smem_bytes(4, 240, 30, 16) == 8 * (
+        240 * 30 + 6 * 15 * 30 + 4 * 15 * 33 + 32)
+    assert CL.smem_bytes(4, 240, 30, 8) == 8 * (
+        240 * 30 + 6 * 30 * 30 + 4 * 30 * 33 + 16)
+    # at 16 CTAs the bulk rows of H (115 KB) stay in shared memory, at 8 not
+    resident = 8 * (240 * 30 + 6 * 15 * 30 + 4 * 15 * 241 + 32)
+    assert CL.smem_bytes(4, 240, 30, 16, resident=True) == resident
+    assert resident <= CL.MAX_SMEM < CL.smem_bytes(4, 240, 30, 8, True)
+    # an x too large for one CTA's shared memory stays on one block
+    assert CL.route(1024, 64, 8) == "block"
+    with pytest.raises(ValueError, match="does not fit"):
+        CL.plan(1024, 64, 8, 10, "cluster")
+
+
 # ------------------------------------------------------------ on the card
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
@@ -225,3 +282,62 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                         v.to(torch.complex128), -0.5j, 1e-6, 10, True)
     with pytest.raises(ValueError):
         CL.lanczos_expm(ch, v, -0.5j, 1e-6, 33, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("way,cluster", [("block", 16), ("cluster", 8),
+                                         ("cluster", 16)])
+@pytest.mark.parametrize("shape", [
+    (30, 8, 30, 4), (30, 3, 30, 4), (1, 8, 8, 4), (3, 9, 1, 4),
+])
+def test_kernel_routes_match_plain_on_card(cuda, way, cluster, shape):
+    """Both routes at the chain's shapes (bulk, exciton site, the edge
+    M = 8, and M = 27 which 8 and 16 do not divide): ‖Δψ‖ < 5e-6, the
+    plain version's status, and a second launch equal bit for bit."""
+    l, d, r, w = shape
+    psi, L, W, R = _rand_site(37, l, d, r, w)
+    ch = CL.heff_channels(*(_t(x).to(cuda) for x in (L, W, R)))
+    v = _t(psi).reshape(l * d, r).to(cuda)
+    before = dict(CL.lanczos_expm.route_launches)
+    kw = dict(way=way, cluster=cluster)
+    out, st = CL.lanczos_expm(ch, v, -0.5j, 1e-6, 10, True, **kw)
+    again, st2 = CL.lanczos_expm(ch, v, -0.5j, 1e-6, 10, True, **kw)
+    ref, st_ref = CL.lanczos_expm_plain(*ch, v, -0.5j, 1e-6, 10, True)
+    torch.cuda.synchronize()
+    assert CL.lanczos_expm.route_launches[way] == before[way] + 2
+    assert st.tolist() == st_ref.tolist() == st2.tolist()
+    assert torch.equal(out, again)
+    assert float(torch.linalg.vector_norm(out - ref)) < 5e-6
+
+
+@pytest.mark.cuda
+def test_cluster_route_takes_the_bulk_and_the_k_steps(cuda):
+    """A (30, 30) K step on its own route, a cluster of 8: the plain
+    version's status and ‖Δψ‖ < 5e-6, counted by size."""
+    rng = np.random.default_rng(39)
+    L = rng.standard_normal((30, 4, 30)) + 1j * rng.standard_normal((30, 4, 30))
+    L = 0.5 * (L + L.transpose(2, 1, 0).conj()) / np.linalg.norm(L)
+    sig = rng.standard_normal((30, 30)) + 1j * rng.standard_normal((30, 30))
+    kch = CL.keff_channels(_t(L).to(cuda), _t(L).to(cuda))
+    v = _t(sig / np.linalg.norm(sig)).to(cuda)
+    before = CL.lanczos_expm.cluster_launches.get(8, 0)
+    out, st = CL.lanczos_expm(kch, v, 0.5j, 1e-6, 10, False)
+    ref, st_ref = CL.lanczos_expm_plain(*kch, v, 0.5j, 1e-6, 10, False)
+    assert CL.lanczos_expm.cluster_launches[8] == before + 1
+    assert st.tolist() == st_ref.tolist()
+    assert float(torch.linalg.vector_norm(out - ref)) < 5e-6
+
+
+@pytest.mark.cuda
+def test_cluster_that_cannot_be_scheduled_raises(cuda):
+    """A cluster of 32 CTAs exceeds what the card schedules: the wrapper
+    raises and launches nothing, on no other route."""
+    psi, L, W, R = _rand_site(41, 30, 8, 30, 4)
+    ch = CL.heff_channels(*(_t(x).to(cuda) for x in (L, W, R)))
+    v = _t(psi).reshape(240, 30).to(cuda)
+    before = CL.lanczos_expm.launches, dict(CL.lanczos_expm.route_launches)
+    with pytest.raises(RuntimeError, match="cluster route"):
+        CL.lanczos_expm(ch, v, -0.5j, 1e-6, 10, True, way="cluster",
+                        cluster=32)
+    assert (CL.lanczos_expm.launches,
+            dict(CL.lanczos_expm.route_launches)) == before

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cluster_replay as replay
 from pytdscf_torch import _cuda
 from pytdscf_torch.config import Config
 from pytdscf_torch.mps import cuda_lanczos as CL
@@ -187,6 +188,30 @@ def test_site_fits_gates():
     assert not CS.site_fits((30, 8, 30), (4, 8, 8, 4), (30, 8, 30), 33)
 
 
+def test_route_by_shape():
+    """Every fused site of the chain takes the cluster route in both
+    directions; small sites the one-block route; the gate takes every
+    shape that either route fits, as it took every one-block shape."""
+    for shape, W_shape in (((30, 8, 30), (4, 8, 8, 4)),
+                           ((30, 3, 30), (4, 3, 3, 4)),
+                           ((8, 8, 30), (4, 8, 8, 4))):
+        l, d, r = shape
+        assert CS.route(W_shape[-1], l * d, r) == "cluster"
+        assert CS.route(W_shape[0], r * d, l) == "cluster"
+    assert CS.route(3, 12, 5) == "block"
+    # the work area, T, w and prev, Q's rows, c1..c3 and two inboxes, σ, H's
+    # slice, Q whole and the MGS's two work vectors of M
+    assert CS.smem_bytes(4, 240, 30, "cluster", 16) == 8 * (
+        7200 + 6 * 15 * 30 + 15 * 31 + (3 + 32) * 30 + 900 + 4 * 15 * 33
+        + 7200 + 480)
+    # on 8 CTAs the bulk fits too, with 0.9 KB to spare
+    assert CS.smem_bytes(4, 240, 30, "cluster", 8) <= CS.MAX_SMEM
+    # a site past the cluster's shared memory keeps the one-block route
+    assert CS.route(2, 2048, 16) == "block"
+    assert CS.site_fits((16, 128, 16), (2, 128, 128, 2), None, 10)
+    assert CS.route(8, 4096, 64) is None
+
+
 def test_wrapper_runs_plain_version_on_cpu():
     arrays = _case(True)
     t = [torch.as_tensor(a, dtype=torch.complex64) for a in arrays]
@@ -224,6 +249,36 @@ def test_build_digest_covers_headers(tmp_path, header):
     (tmp_path / ("h.cuh" if header else "a.cu")).write_text("// v2\n")
     assert _cuda.source_digest(tmp_path) != before
     assert _cuda.source_digest(_cuda.CSRC) == _cuda.source_digest()
+
+
+@pytest.mark.parametrize("conserve", [False, True])
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("shape,forward", [
+    ((2, 4, 4, 3, 3, 6), True), ((4, 6, 5, 3, 3, 6), False),
+    ((9, 3, 5, 3, 3, 6), True), ((30, 8, 30, 4, 8, 30), True),
+])
+def test_cluster_replay_matches_plain_c128(shape, forward, C, conserve):
+    """The cluster route's algorithm (``tests/torch_cluster_replay.py``:
+    the row split with empty ranks, rank-ordered partial sums, the x and Q
+    gathers, the gauge on ψ₁ gathered whole, and the renormalisation's
+    reduce-scatter of partial blocks) at M = 8, 24, 27 and 240, with and
+    without norm conservation, equals the plain version in complex128,
+    Krylov status included."""
+    l, d, r, nc, d2, r2 = shape
+    psi, W, L, R = _rand_case(51, l, d, r, nc)
+    nxt = (_rand_case(52, r, d2, r2, nc)[0] if forward
+           else np.transpose(_rand_case(53, l, d2, r2, nc)[0], (2, 1, 0)))
+    c = torch.complex128
+    t = [torch.as_tensor(a, dtype=c) for a in (psi, nxt, L, W, R)]
+    lL, lR = torch.tensor(0.37, dtype=torch.float64), torch.tensor(
+        -0.21, dtype=torch.float64)
+    kw = dict(forward=forward, max_dim=10, conserve=conserve)
+    got = replay.site_step(*t, -0.1j, 1e-6, lL, lR, C=C, **kw)
+    ref = CS.site_step_fused_plain(*t, -0.1j, 1e-6, lL, lR, **kw)
+    assert got[4].tolist() == ref[4].tolist()
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.shape == b.shape
+        assert float(torch.max(torch.abs(a - b))) < 1e-12
 
 
 # ------------------------------------------------------------ on the card
@@ -272,3 +327,54 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         CS.site_step_fused(psi, nxts[0], L, W, R, -0.1j, 1e-6, lL, lR,
                            forward=True, max_dim=33, conserve=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("way,cluster", [("block", 16), ("cluster", 8),
+                                         ("cluster", 16)])
+@pytest.mark.parametrize("shape", [(30, 8, 30, 4, 8, 30), (30, 3, 30, 4, 8, 30),
+                                   (2, 4, 8, 4, 8, 30), (9, 3, 5, 3, 3, 6)])
+@pytest.mark.parametrize("forward", [True, False])
+def test_kernel_routes_match_plain_on_card(cuda, way, cluster, shape,
+                                           forward):
+    """Both routes at the chain's bulk and exciton sites, the edge M = 8
+    and M = 27 (which 8 and 16 do not divide): 5e-6 on the cores and
+    blocks, |Δlog| < 5e-6, the plain version's status, and a second launch
+    equal bit for bit."""
+    l, d, r, nc, d2, r2 = shape
+    psi, nxts, L, W, R = _card_case(47, l, d, r, nc, d2, r2, cuda)
+    nxt = nxts[0] if forward else nxts[1]
+    lL = torch.tensor(0.37, device=cuda)
+    lR = torch.tensor(-0.21, device=cuda)
+    args = (psi, nxt, L, W, R, -0.1j, 1e-6, lL, lR)
+    kw = dict(forward=forward, max_dim=10, conserve=True)
+    route = dict(way=way, cluster=cluster)
+    M, rf = (l * d, r) if forward else (r * d, l)
+    if CS.smem_bytes(nc, M, rf, way, cluster) > CS.MAX_SMEM:
+        # (the bulk on 8 CTAs): refused, not run
+        with pytest.raises(ValueError, match="does not take"):
+            CS.site_step_fused(*args, **kw, **route)
+        return
+    before = CS.site_step_fused.route_launches[way]
+    got = CS.site_step_fused(*args, **kw, **route)
+    again = CS.site_step_fused(*args, **kw, **route)
+    ref = CS.site_step_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert CS.site_step_fused.route_launches[way] == before + 2
+    assert torch.equal(got[4], ref[4]) and torch.equal(got[4], again[4])
+    for a, b, c in zip(got[:4], ref[:4], again[:4]):
+        assert a.shape == b.shape
+        assert torch.equal(a, c)
+        assert float(torch.max(torch.abs(a - b))) < 5e-6
+
+
+@pytest.mark.cuda
+def test_cluster_that_cannot_be_scheduled_raises(cuda):
+    psi, nxts, L, W, R = _card_case(49, 30, 8, 30, 4, 8, 30, cuda)
+    lL = lR = torch.tensor(0.0, device=cuda)
+    before = CS.site_step_fused.launches
+    with pytest.raises(RuntimeError, match="cluster route"):
+        CS.site_step_fused(psi, nxts[0], L, W, R, -0.1j, 1e-6, lL, lR,
+                           forward=True, max_dim=10, conserve=True,
+                           way="cluster", cluster=32)
+    assert CS.site_step_fused.launches == before
