@@ -81,6 +81,16 @@ class Config:
     pytest_enabled: bool = False
     #: Computation dtype for the tensor network.
     dtype: str = "complex128"
+    #: Defer per-step property fetches: the Simulator queues the device
+    #: observables of up to ``fetch_stride`` steps and reads them with ONE
+    #: packed device→host copy, and runs each ``fetch_stride``-long block
+    #: of steps through ``TDVPEngine.propagate_steps_collect`` (on the
+    #: card, replays of a recorded step).  The ``.dat`` rows are those of
+    #: stride 1; only the read (and the norm-drift warning) is delayed, by
+    #: at most ``fetch_stride − 1`` steps.  Checkpoints, observables-dict
+    #: evaluations and reduced-density exports flush the queue first, so
+    #: file ordering is preserved.
+    fetch_stride: int = 1
 
     def __post_init__(self):
         for name in ("matvec_precision", "env_precision"):

@@ -922,8 +922,11 @@ __device__ void cluster_lanczos_result(ClusterRows& c, const float2* prev,
 // checks with cudaOccupancyMaxActiveClusters that the card can hold one
 // such cluster (cudaErrorInvalidClusterSize if not; a refused shape is
 // not remembered, so it is refused again).  Later launches of a ready
-// shape find it in the table and touch no attribute.  A mutex guards the
-// table: host threads may launch at once.
+// shape find it in the table and touch no attribute.  A shape first seen
+// while its stream is being captured into a CUDA graph is refused with
+// cudaErrorStreamCaptureUnsupported: a recorded launch must find its
+// set-up done by a launch that ran.  A mutex guards the table: host
+// threads may launch at once.
 template <class Kernel>
 cudaError_t cluster_ready(int device, Kernel kernel,
                           const cudaLaunchConfig_t& cfg) {
@@ -949,12 +952,16 @@ cudaError_t cluster_ready(int device, Kernel kernel,
   for (const Ready& e : ready)
     if (e.device == device && e.fn == fn && e.size == size && e.smem == smem)
       return cudaSuccess;
+  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+  cudaError_t err = cudaStreamIsCapturing(cfg.stream, &capture);
+  if (err != cudaSuccess) return err;
+  if (capture != cudaStreamCaptureStatusNone)
+    return cudaErrorStreamCaptureUnsupported;
   size_t i = 0;
   while (i < limits.size() && !(limits[i].device == device &&
                                 limits[i].fn == fn))
     ++i;
   if (i == limits.size()) limits.push_back(Limit{device, fn, 0, false});
-  cudaError_t err;
   if (smem > limits[i].smem) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -30,6 +30,18 @@ The Lanczos route reads nothing back to the host inside a sweep; the
 Arnoldi route reads one scalar per Krylov iteration (its stopping test).
 The Krylov telemetry stays on the device until
 :meth:`TDVPEngine.krylov_stats`.
+
+Two drivers.  :meth:`TDVPEngine.propagate` runs one step, each kernel
+launched from the host.  :meth:`TDVPEngine.propagate_steps` and
+:meth:`~TDVPEngine.propagate_steps_collect` (the JAX package's fused
+multi-step driver) run a block of steps, the latter collecting each step's
+pre-step observables on the device (:meth:`~TDVPEngine.properties_submit`)
+for one packed host read per block (:func:`fetch_many`).  Where every site
+update takes a route that reads nothing back (:meth:`~TDVPEngine.
+capturable`), the block's steps run as a program over fixed buffers
+(``step_graph.StepProgram``): on the card one step is recorded as a CUDA
+graph and replayed, on the CPU the same step runs uncaptured.  Elsewhere
+the block runs :meth:`~TDVPEngine.propagate` step by step.
 """
 
 from __future__ import annotations
@@ -46,9 +58,53 @@ from pytdscf_torch.mps import cuda_renorm as CR
 from pytdscf_torch.mps import cuda_site as CS
 from pytdscf_torch.mps import kernels as K
 from pytdscf_torch.mps import cuda_lanczos as CL
+from pytdscf_torch.mps import step_graph
 from pytdscf_torch.mps.integrator import krylov_expm
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
+
+
+def fetch_many(items, real) -> list[np.ndarray]:
+    """The values of the device tensors ``items`` through ONE
+    device→host copy (a packed real vector of dtype ``real``), each as a
+    numpy array of its own shape, complex where it was complex."""
+    if not items:
+        return []
+    host = step_graph.pack(items, real).cpu().numpy()
+    cplx = np.complex64 if host.dtype == np.float32 else np.complex128
+    out, k = [], 0
+    for x in items:
+        n = x.numel() * (2 if x.is_complex() else 1)
+        v = host[k:k + n].copy()
+        k += n
+        out.append((v.view(cplx) if x.is_complex() else v).reshape(x.shape))
+    return out
+
+
+def _unstack(rows: torch.Tensor, layout) -> list[torch.Tensor]:
+    """Per-step packed rows (n, width) → one tensor per item of ``layout``
+    ((shape, dtype) of each), with a leading step axis."""
+    n, out, k = rows.shape[0], [], 0
+    for shape, dtype in layout:
+        numel = math.prod(shape)
+        width = 2 * numel if dtype.is_complex else numel
+        part = rows[:, k:k + width]
+        k += width
+        if dtype.is_complex:
+            part = torch.view_as_complex(part.reshape(n, *shape, 2).contiguous())
+        out.append(part.reshape(n, *shape))
+    return out
+
+
+def _takes_fused_site(cfg, psi_shape, W_shape, nxt_shape) -> bool:
+    """Whether a non-last site update runs as one call of the fused site
+    kernel (``cuda_site.site_step_fused``)."""
+    return (
+        cfg.fused_site
+        and cfg.integrator != "arnoldi"
+        and cfg.matvec_precision == cfg.env_precision == "highest"
+        and CS.site_fits(psi_shape, W_shape, nxt_shape, cfg.max_krylov)
+    )
 
 
 def _normalize_block(B):
@@ -110,13 +166,7 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
     l, d, r = psi.shape
     conserve = cfg.conserve_norm
     arnoldi = cfg.integrator == "arnoldi"
-    if (
-        cfg.fused_site
-        and not last
-        and not arnoldi
-        and cfg.matvec_precision == cfg.env_precision == "highest"
-        and CS.site_fits(psi.shape, W.shape, nxt.shape, cfg.max_krylov)
-    ):
+    if not last and _takes_fused_site(cfg, psi.shape, W.shape, nxt.shape):
         # the whole update as one call of the fused site kernel
         site_out, psi_next, block, log_new, st = CS.site_step_fused(
             psi, nxt, L, W, R, scale, cfg.thresh_exp, lL, lR,
@@ -235,6 +285,18 @@ class TDVPEngine:
         self._kry_warned = False
         #: running max gauge deviation (pytest_enabled self-checks)
         self._gauge_dev: torch.Tensor | None = None
+        #: which half-sweep built ``env_stack``: "right" after a backward
+        #: one (the stack a forward sweep pops, whose top block gives ⟨H⟩
+        #: in :meth:`properties_submit`), "left", or None
+        self._env_side: str | None = None
+        #: the step programs of :meth:`propagate_steps`, by (step scale,
+        #: property set, config, core shapes); each holds its buffers and,
+        #: on the card, its CUDA graph, and goes with the engine
+        self._programs: dict = {}
+        #: steps run as replays of a recorded graph, and steps run by
+        #: launching every kernel from the host
+        self.graph_steps = 0
+        self.eager_steps = 0
 
     # ---------------------------------------------------------- helpers
     def _put(self, a) -> torch.Tensor:
@@ -255,6 +317,25 @@ class TDVPEngine:
             torch.ones((1, 1, 1), dtype=self.dtype, device=self.device),
             torch.zeros((), dtype=real, device=self.device),
         )
+
+    def _right_block(self, W, dtype=None):
+        """The right environment of site 0 for the MPO ``W``, contracted
+        over sites N−1..1 at unit norm: ``(block, log-scale)``.  With
+        ``dtype`` (complex128) the contraction runs on copies of the cores
+        and of ``W`` in that precision."""
+        cores = self.cores[0]
+        block, log = self._trivial()
+        if dtype is not None:
+            cores = [c.to(dtype) for c in cores]
+            W = [w.to(dtype) for w in W]
+            block = block.to(dtype)
+            log = log.to(torch.float64 if dtype == torch.complex128
+                         else torch.float32)
+        for p in range(self.nsite - 1, 0, -1):
+            block, dl = _normalize_block(
+                K.renorm_block_right(block, cores[p], W[p], cores[p]))
+            log = log + dl
+        return block, log
 
     def build_right_env_stack(self) -> list:
         """[trivial, R(N−1..), …, R(1..)] — pop order matches a → sweep.
@@ -318,6 +399,7 @@ class TDVPEngine:
             sys_block, sys_log = new
             sys_stack.append(new)
         self.env_stack = sys_stack
+        self._env_side = "left" if forward else "right"
         acc = torch.stack(stats).sum(0)
         self._kry_sum = acc if self._kry_sum is None else self._kry_sum + acc
         self._kry_calls += len(stats)
@@ -331,9 +413,18 @@ class TDVPEngine:
                 "one-site gates and Kraus maps are not ported yet "
                 "(ROADMAP A10)"
             )
-        scale = -0.5j * dt
+        self._step(-0.5j * dt)
+        self.eager_steps += 1
+        self._check_gauge()
+
+    def _step(self, scale: complex) -> None:
+        """The two half-sweeps of one step, with nothing read back."""
         self._half_sweep(scale, forward=True)
         self._half_sweep(scale, forward=False)
+
+    def _check_gauge(self) -> None:
+        """Raise if the gauge deviation gathered since the last check
+        exceeds the dtype's tolerance (``pytest_enabled`` runs only)."""
         if self.config.pytest_enabled and self._gauge_dev is not None:
             dev = float(self._gauge_dev)
             self._gauge_dev = None
@@ -344,25 +435,296 @@ class TDVPEngine:
                     f"= {dev:.3e} > {tol:.0e}"
                 )
 
+    # ------------------------------------------------ fused multi-step
+    def capturable(self) -> bool:
+        """Whether a whole step can be recorded as a CUDA graph: every site
+        update takes a route that reads nothing back to the host (the
+        Lanczos kernel where :func:`cuda_lanczos.fits` takes the H and K
+        steps, or the fused site kernel, and the MGS gauge), decided from
+        the config and the core and MPO shapes before any capture.  The
+        Arnoldi and einsum-Lanczos loops read scalars every iteration, as
+        CholeskyQR³ does, so a step that reaches them is not.  The answer
+        does not depend on the device: on the CPU it selects the same
+        buffer program, run uncaptured."""
+        cfg = self.config
+        if (cfg.integrator != "lanczos" or cfg.krylov_relaxed
+                or cfg.matvec_precision != "highest"
+                or cfg.env_precision != "highest"):
+            return False
+        cores, n = self.cores[0], self.nsite
+        for p in range(n):
+            l, d, r = cores[p].shape
+            W = self.W[p]
+            for forward, q in ((True, p + 1), (False, p - 1)):
+                last = not 0 <= q < n
+                if not last and _takes_fused_site(cfg, cores[p].shape,
+                                                  W.shape, cores[q].shape):
+                    continue
+                if not CL.fits((l * d, r), W.shape[-1], cfg.max_krylov):
+                    return False
+                if last:
+                    continue
+                # the K step runs on the gauge's (bond, bond) factor
+                bond, nc = (r, W.shape[3]) if forward else (l, W.shape[0])
+                if (bond >= K.CHOLESKY_QR_MIN_R
+                        or not CL.fits((bond, bond), nc, cfg.max_krylov)):
+                    return False
+        return True
+
+    def _ensure_right_stack(self) -> None:
+        """Build the right environment stack unless a backward half-sweep
+        left it (the carry of a step)."""
+        if self.env_stack is None or self._env_side != "right":
+            self.env_stack = self.build_right_env_stack()
+            self._env_side = "right"
+
+    def propagate_steps(self, dt: float, nsteps: int) -> None:
+        """Run ``nsteps`` TDVP steps as one block (the JAX package's fused
+        driver): the same steps as ``nsteps`` calls of :meth:`propagate`.
+
+        Where :meth:`capturable` holds, the block runs a step program over
+        fixed buffers (``step_graph.StepProgram``), one per step scale:
+        the first step of a new program runs from the host and fills every
+        per-shape cache, then on the card the step is recorded once as a
+        CUDA graph and every later step of this and later blocks replays
+        it (``graph_steps``); on the CPU the program's step runs uncaptured
+        (``eager_steps``).  A failed capture or replay raises.  Elsewhere
+        the block is :meth:`propagate` step by step.  After a block the
+        engine's cores and environment stack ARE the program's buffers: a
+        tensor a caller kept from them is overwritten by the next block.
+        """
+        self._run_block(dt, nsteps, None)
+
+    def propagate_steps_collect(
+        self,
+        dt: float,
+        nsteps: int,
+        *,
+        operator=None,
+        autocorr: bool = True,
+        energy: bool = True,
+        norm: bool = True,
+        populations: bool = True,
+    ):
+        """Run ``nsteps`` steps as :meth:`propagate_steps` does AND collect
+        each step's observables of its PRE-step state (the driver's
+        properties-then-propagate ordering) on the device; in a replayed
+        step the collection is part of the graph.  Returns ``(items,
+        plan)``: ``items[i]`` carries a leading ``nsteps`` axis (row ``t``
+        is the observable before step ``t``), ``plan`` the decode plan for
+        :meth:`properties_resolve`, applied row by row after one
+        :func:`fetch_many`."""
+        collect = {"operator": operator, "autocorr": autocorr,
+                   "energy": energy, "norm": norm, "populations": populations}
+        rows, plan, layout = self._run_block(dt, nsteps, collect)
+        if not rows:
+            return [], plan
+        return _unstack(torch.stack(rows), layout), plan
+
+    def _run_block(self, dt: float, nsteps: int, collect):
+        """The block of :meth:`propagate_steps` (``collect`` None) or
+        :meth:`propagate_steps_collect` (``collect``: its keywords).
+        Returns each step's packed observables (device rows), the decode
+        plan and the packing layout."""
+        rows: list = []
+        plan = layout = None
+        if nsteps <= 0:
+            return rows, plan, layout
+        scale = -0.5j * dt
+        self._ensure_right_stack()
+        real = self.fetch_real_dtype()
+
+        def submit():
+            items, plan = self.properties_submit(**collect)
+            return (step_graph.pack(items, real), plan,
+                    [(x.shape, x.dtype) for x in items])
+
+        if not self.capturable():
+            for _ in range(nsteps):
+                if collect is not None:
+                    row, plan, layout = submit()
+                    rows.append(row)
+                self.propagate(dt)
+            return rows, plan, layout
+        props = None
+        if collect is not None:
+            op = collect["operator"]
+            props = (None if op is None or op is self.hamiltonian else id(op),
+                     *(collect[k] for k in ("autocorr", "energy", "norm",
+                                            "populations")))
+        key = (scale, props, self.config,
+               tuple(tuple(c.shape) for c in self.cores[0]))
+        prog = self._programs.get(key)
+        done = 0
+        if prog is None:
+            # a real step of the block, from the host: it fills the route
+            # plans, the launch set-up and the library before any capture
+            if collect is not None:
+                row, plan, layout = submit()
+                rows.append(row)
+            self._step(scale)
+            self.eager_steps += 1
+            done = 1
+            prog = step_graph.StepProgram(self, scale, collect, rows[0] if rows
+                                          else None, plan, layout)
+            if self.device.type == "cuda":
+                prog.capture(self)
+            self._programs[key] = prog
+        prog.load(self)
+        for _ in range(done, nsteps):
+            prog.run(self)
+            if collect is not None:
+                rows.append(prog.slot.clone())
+        prog.install(self)
+        self._check_gauge()
+        return rows, prog.plan, prog.layout
+
+    # ------------------------------------------------ deferred properties
+    def fetch_real_dtype(self) -> torch.dtype:
+        """Real dtype of packed host fetches (:func:`fetch_many`)."""
+        return torch.float32 if self.dtype == torch.complex64 else torch.float64
+
+    def _mpo(self, operator) -> list[torch.Tensor]:
+        """The fused MPO cores of ``operator`` on this device: the engine's
+        own for its Hamiltonian (``None``), else built once and cached."""
+        if operator is None or operator is self.hamiltonian:
+            return self.W
+        if id(operator) not in self._op_W:
+            self._op_W[id(operator)] = (operator, self._fused_cores(operator))
+        return self._op_W[id(operator)][1]
+
+    def properties_submit(
+        self,
+        operator=None,
+        *,
+        autocorr: bool = True,
+        energy: bool = True,
+        norm: bool = True,
+        populations: bool = True,
+    ) -> tuple[list, list]:
+        """The requested observables as device tensors, with no host read.
+
+        Returns ``(items, plan)``: the tensors and the decode plan for
+        :meth:`properties_resolve`.  Drivers fetch the items of one or many
+        steps with one :func:`fetch_many` (``Config.fetch_stride``).
+
+        When the engine's environment stack is the full right stack a
+        backward half-sweep just built (``_env_side == "right"``), ⟨H⟩
+        reuses its top block: one H_eff and one dot product instead of the
+        chain recontraction of :meth:`expectation`."""
+        liouville = self.config.space == "liouville"
+        items: list = []
+        plan: list = []
+        triv, _ = self._trivial()
+        if energy:
+            is_ham = operator is None or operator is self.hamiltonian
+            if (
+                is_ham
+                and self.env_stack is not None
+                and self._env_side == "right"
+                and len(self.env_stack) == self.nsite
+            ):
+                block, log = self.env_stack[-1]
+            else:
+                block, log = self._right_block(self._mpo(operator))
+            W0 = self._mpo(operator)[0]
+            psi = self.cores[0][0]
+            sig = K.heff_apply(triv, W0, block, psi)
+            items.append(torch.sum(psi.conj() * sig))
+            items.append(log)
+            plan.append(("energy", 1))
+        if autocorr:
+            S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
+            for c in self.cores[0]:
+                S = K.ovlp_left_noconj(S, c, c)
+            items.append(S)
+            plan.append(("autocorr", 1))
+        if populations or (norm and not liouville):
+            items.append(torch.sum(torch.abs(self.cores[0][0]) ** 2))
+            plan.append(("pops", 1))
+        if norm and liouville:
+            S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
+            for p in range(self.nsite):
+                S = torch.einsum("lk,lnr,n->rk", S, self.cores[0][p],
+                                 self._vec_eye(p))
+            items.append(S)
+            plan.append(("trace", 1))
+        return items, plan
+
+    def properties_resolve(
+        self,
+        vals: list,
+        plan: list,
+        *,
+        norm: bool = True,
+        populations: bool = True,
+    ) -> dict:
+        """Decode host values (:func:`fetch_many`) of
+        :meth:`properties_submit`'s items."""
+        liouville = self.config.space == "liouville"
+        out: dict = {}
+        k = 0
+        pops = None
+        for kind, n in plan:
+            if kind == "energy":
+                tot = 0.0 + 0.0j
+                for q in range(n):
+                    v = complex(vals[k + 2 * q])
+                    fac = float(vals[k + 2 * q + 1].real)
+                    tot += v * math.exp(fac)
+                out["energy"] = tot
+                k += 2 * n
+            elif kind == "autocorr":
+                out["autocorr"] = complex(
+                    sum(vals[k + i][0, 0] for i in range(n))
+                )
+                k += n
+            elif kind == "pops":
+                pops = [float(vals[k + i].real) for i in range(n)]
+                k += n
+            elif kind == "trace":
+                out["trace"] = complex(vals[k][0, 0])
+                k += 1
+        if populations:
+            out["populations"] = pops
+        if norm:
+            out["norm"] = (
+                abs(out["trace"]) if liouville
+                else float(math.sqrt(sum(pops)))
+            )
+        return out
+
+    def properties_bundle(
+        self,
+        operator=None,
+        *,
+        autocorr: bool = True,
+        energy: bool = True,
+        norm: bool = True,
+        populations: bool = True,
+    ) -> dict:
+        """The requested observables with ONE device→host read:
+        :meth:`properties_submit`, :func:`fetch_many`,
+        :meth:`properties_resolve`."""
+        items, plan = self.properties_submit(
+            operator,
+            autocorr=autocorr,
+            energy=energy,
+            norm=norm,
+            populations=populations,
+        )
+        vals = fetch_many(items, self.fetch_real_dtype())
+        return self.properties_resolve(
+            vals, plan, norm=norm, populations=populations
+        )
+
     # ------------------------------------------------------- observables
     def expectation(self, operator=None) -> complex:
         """⟨Ψ|O|Ψ⟩ with Psi canonical at site 0: O is the engine's
         Hamiltonian (``None``) or any operator with ``fused_mpo`` (an
         observable), whose fused MPO is built once and cached."""
-        if operator is None or operator is self.hamiltonian:
-            W = self.W
-        else:
-            if id(operator) not in self._op_W:
-                self._op_W[id(operator)] = (operator,
-                                            self._fused_cores(operator))
-            W = self._op_W[id(operator)][1]
-        block, log = self._trivial()
-        for p in range(self.nsite - 1, 0, -1):
-            c = self.cores[0][p]
-            block, dl = _normalize_block(
-                K.renorm_block_right(block, c, W[p], c)
-            )
-            log = log + dl
+        W = self._mpo(operator)
+        block, log = self._right_block(W)
         triv, _ = self._trivial()
         psi = self.cores[0][0]
         sig = K.heff_apply(triv, W[0], block, psi)
@@ -433,6 +795,7 @@ class TDVPEngine:
             cores[p] = b
             cores[p - 1] = K.absorb_left(cores[p - 1], sig)
         self.env_stack = None
+        self._env_side = None
 
     def _vec_eye(self, p: int) -> torch.Tensor:
         d = math.isqrt(self.phys_dims[p])

@@ -10,12 +10,15 @@ schema: dims ``step``/``state``/``Q{idof}``, ``time`` variable, compound
 ``complex128`` ``rho_{key}_{istate}`` variables
 (``/root/reference/pytdscf/properties.py:156-209``).
 
-The port's copy keeps the per-step path.  The JAX package's deferred
-fetch (``Config.fetch_stride``: ``properties_submit``/``_resolve``, the
-packed ``flush``) and its fused block driver (``properties_bundle``,
-``run_fused_block``) are ROADMAP A8, and the adaptive-bond ``bonddim.dat``
-is A9: they are left out, so every step's rows are written as its
-properties are read.
+With ``Config.fetch_stride`` > 1 a step's observables stay device tensors
+(``TDVPEngine.properties_submit``) until up to ``fetch_stride`` steps are
+queued, and :meth:`Properties.flush` reads them all with one packed
+device→host copy (``tdvp.fetch_many``) and writes their rows in step
+order; :meth:`Properties.run_fused_block` runs a block of steps through
+``TDVPEngine.propagate_steps_collect`` and writes its rows after one such
+read.  At stride 1 each step's observables are read with one packed copy
+(``properties_bundle``).  The rows are the same either way.  The
+adaptive-bond ``bonddim.dat`` is ROADMAP A9 and is left out.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 
 from pytdscf_torch import units
 from pytdscf_torch.config import Config
+from pytdscf_torch.mps.tdvp import fetch_many
 from pytdscf_torch.util.nc4 import NC4Writer
 
 
@@ -95,6 +99,10 @@ class Properties:
         self.jobdir = config.jobname
         os.makedirs(self.jobdir, exist_ok=True)
         self._files: dict[str, object] = {}
+        #: deferred-fetch queue (``Config.fetch_stride`` > 1): per-step
+        #: device futures + export intents, flushed in one packed fetch
+        self._pending: list[dict] = []
+        self._pending_step: dict | None = None
 
         if reduced_density is not None:
             self.rd_keys = list(reduced_density[0])
@@ -175,7 +183,66 @@ class Properties:
         want_e = energy and self.nstep % energy_per_step == 0
         want_n = norm and self.nstep % norm_per_step == 0
         want_p = populations and self.nstep % populations_per_step == 0
-        if want_ac:
+        want_obs = (
+            observables
+            and self.nstep % observables_per_step == 0
+            and bool(self.model.observables)
+        )
+        want_rd = (
+            self.rd_keys is not None and self.nstep % self.rd_step == 0
+        )
+        if (
+            self.config.fetch_stride > 1
+            and hasattr(self.engine, "properties_submit")
+            and (not want_ac or self.t2_trick)
+            and (want_ac or want_e or want_n or want_p)
+            # observables-dict / reduced-density / adaptive-bonddim
+            # evaluations sync the device anyway — run those steps inline
+            and not want_obs
+            and not want_rd
+        ):
+            items, plan = self.engine.properties_submit(
+                self.model.hamiltonian,
+                autocorr=want_ac, energy=want_e,
+                norm=want_n, populations=want_p,
+            )
+            self.bonddim = (
+                self.engine.bond_dims()
+                if hasattr(self.engine, "bond_dims")
+                else None
+            )
+            self._pending_step = {
+                "nstep": self.nstep,
+                "t": self.get_time_display(),
+                "items": items,
+                "plan": plan,
+                "wants": (want_ac, want_e, want_n, want_p),
+                "bonddim": self.bonddim,
+            }
+            return
+        self.flush()
+        bundled = False
+        if (
+            hasattr(self.engine, "properties_bundle")
+            and (not want_ac or self.t2_trick)
+            and (want_ac or want_e or want_n or want_p)
+        ):
+            # one packed device→host read instead of one per property
+            out = self.engine.properties_bundle(
+                self.model.hamiltonian,
+                autocorr=want_ac, energy=want_e,
+                norm=want_n, populations=want_p,
+            )
+            if want_ac:
+                self.autocorr = out["autocorr"]
+            if want_e:
+                self.energy = out["energy"].real
+            if want_n:
+                self.norm = out["norm"]
+            if want_p:
+                self.pops = out["populations"]
+            bundled = True
+        if want_ac and not bundled:
             if self.t2_trick:
                 self.autocorr = self.engine.autocorr()
             elif self._initial_cores is not None and hasattr(
@@ -191,12 +258,13 @@ class Properties:
                     self.engine.cores = save
             else:
                 self.autocorr = None
-        if want_e:
+        if want_e and not bundled:
             self.energy = self.engine.expectation(self.model.hamiltonian).real
         if want_n:
-            self.norm = self.engine.norm()
+            if not bundled:
+                self.norm = self.engine.norm()
             self._check_norm_drift(self.nstep)
-        if want_p:
+        if want_p and not bundled:
             self.pops = self.engine.pop_states()
         if observables and self.nstep % observables_per_step == 0:
             for name, op in self.model.observables.items():
@@ -221,6 +289,18 @@ class Properties:
         populations_per_step=1,
         observables_per_step=1,
     ) -> None:
+        if self._pending_step is not None:
+            # this step's values are still device futures — record the
+            # export intent; rows are written (in step order) at flush
+            rec = self._pending_step
+            self._pending_step = None
+            rec["export"] = (
+                autocorr_per_step, populations_per_step, observables_per_step
+            )
+            self._pending.append(rec)
+            if len(self._pending) >= self.config.fetch_stride:
+                self.flush()
+            return
         self._write_rows(
             self.get_time_display(),
             self.nstep,
@@ -234,8 +314,99 @@ class Properties:
         )
 
     def flush(self) -> None:
-        """Nothing is deferred in the port (the packed fetch is ROADMAP
-        A8): each step's rows are already written."""
+        """Resolve all deferred steps with ONE packed device fetch and
+        write their .dat rows in step order."""
+        if self._pending_step is not None:
+            # get_properties deferred but export was never called (final
+            # partial step) — export everything due
+            rec = self._pending_step
+            self._pending_step = None
+            rec["export"] = (1, 1, 1)
+            self._pending.append(rec)
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        items = [it for rec in pending for it in rec["items"]]
+        vals = fetch_many(items, self.engine.fetch_real_dtype())
+        k = 0
+        for rec in pending:
+            n = len(rec["items"])
+            want_ac, want_e, want_n, want_p = rec["wants"]
+            out = self.engine.properties_resolve(
+                vals[k:k + n], rec["plan"],
+                norm=want_n, populations=want_p,
+            )
+            k += n
+            if want_ac:
+                self.autocorr = out["autocorr"]
+            if want_e:
+                self.energy = out["energy"].real
+            if want_n:
+                self.norm = out["norm"]
+                self._check_norm_drift(rec["nstep"])
+            if want_p:
+                self.pops = out["populations"]
+            self._write_rows(
+                rec["t"], rec["nstep"],
+                self.autocorr if want_ac else None,
+                self.pops if want_p else None,
+                rec["bonddim"], {}, *rec["export"],
+            )
+
+    def run_fused_block(
+        self,
+        dt_au: float,
+        nsteps: int,
+        *,
+        autocorr: bool,
+        energy: bool,
+        norm: bool,
+        populations: bool,
+        export: tuple[int, int, int] = (1, 1, 1),
+    ) -> None:
+        """Propagate ``nsteps`` as ONE block and write the per-step .dat
+        rows.
+
+        Wraps ``TDVPEngine.propagate_steps_collect``: each step collects
+        its PRE-step observables on the device (on the card inside the
+        replayed step graph), then the block is resolved with one packed
+        fetch — rows are identical to the per-step driver, and the host
+        reads the device once per block instead of once per step."""
+        self.flush()
+        items, plan = self.engine.propagate_steps_collect(
+            dt_au, nsteps,
+            operator=self.model.hamiltonian,
+            autocorr=autocorr, energy=energy,
+            norm=norm, populations=populations,
+        )
+        bonddim = (
+            self.engine.bond_dims()
+            if hasattr(self.engine, "bond_dims")
+            else None
+        )
+        vals = fetch_many(items, self.engine.fetch_real_dtype())
+        for t in range(nsteps):
+            out = self.engine.properties_resolve(
+                [v[t] for v in vals], plan,
+                norm=norm, populations=populations,
+            )
+            if autocorr:
+                self.autocorr = out["autocorr"]
+            if energy:
+                self.energy = out["energy"].real
+            if norm:
+                self.norm = out["norm"]
+                self._check_norm_drift(self.nstep)
+            if populations:
+                self.pops = out["populations"]
+            self.bonddim = bonddim
+            self._write_rows(
+                self.get_time_display(), self.nstep,
+                self.autocorr if autocorr else None,
+                self.pops if populations else None,
+                bonddim, {}, *export,
+            )
+            self.update(dt_au)
 
     def _check_norm_drift(self, nstep: int) -> None:
         if (

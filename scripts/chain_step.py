@@ -7,9 +7,14 @@ imports ``pytdscf_torch`` and ``chip_smoke.build_engine`` from the checkout
 at ROOT (each tree builds its own kernels into ``ROOT/pytdscf_torch/_build``),
 runs one warm-up step and then N timed steps (``TDVPEngine.propagate``,
 synchronised after each) with the separate kernels, then the same with the
-fused site kernel (``Config.fused_site``), and prints one JSON line: the
-step times of each path, their medians, and the card.  To compare two trees
-run them in one session, in the order a, b, b, a.
+fused site kernel (``Config.fused_site``).  Where the tree has the fused
+multi-step driver it also times ``bench.py``'s driver on a fresh engine
+(``propagate_steps(dt, 1)``, then 5 blocks of 4 steps, each block's s/step)
+and ``Simulator.propagate`` of the chain over 17 steps at the default
+stride (16), separate kernels (its loop s/step from the Simulator's phase
+timers); a tree without it reports null.  Prints one JSON line: the step
+times of each path, their medians, and the card.  To compare two trees run
+them in one session, in the order a, b, b, a.
 """
 
 from __future__ import annotations
@@ -56,6 +61,29 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         out[path] = {"s_per_step": times, "median": statistics.median(times)}
+    del engine
+    out["graph"] = out["simulator_stride16"] = None
+    if hasattr(chip_smoke, "run_simulator"):
+        engine = chip_smoke.build_engine("cuda")
+        engine.propagate_steps(dt_au, 1)  # a host step, then the capture
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            engine.propagate_steps(dt_au, 4)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / 4)
+        out["graph"] = {"s_per_step": times,
+                        "median": statistics.median(times),
+                        "graph_steps": engine.graph_steps}
+        del engine
+        steps = chip_smoke.STRIDE_STEPS
+        run = chip_smoke.run_simulator(chip_smoke.chain_model(), None,
+                                       fused=False, steps=steps)
+        elapsed = run.sim.diagnostics.elapsed
+        out["simulator_stride16"] = {
+            "loop_s_per_step": sum(elapsed.values()) / steps,
+            "graph_steps": run.engine.graph_steps}
     print(json.dumps(out))
     return 0
 

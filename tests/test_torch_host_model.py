@@ -152,8 +152,8 @@ def _defs(path: str) -> dict[str, list[str]]:
 #: (JAX module, port module, {function: lines the port adds}); a function
 #: absent from the table is a verbatim copy, and every other line of the
 #: port's function must be one of the original's (what it drops is a cut:
-#: the deferred fetch and fused driver of A8, the adaptive bond file of A9,
-#: the device_io transfers, the TPU venue advisory)
+#: the adaptive bond file of A9, the device_io transfers, the TPU venue
+#: advisory)
 COPIES = [
     ("pytdscf_tpu/diagnostics.py", "pytdscf_torch/diagnostics.py", {}),
     ("pytdscf_tpu/_logging.py", "pytdscf_torch/_logging.py", {
@@ -172,13 +172,23 @@ COPIES = [
     ("pytdscf_tpu/properties.py", "pytdscf_torch/properties.py", {
         "Properties.__init__": [
             "[engine._put(c) for c in state] for state in initial_cores"],
-        "Properties.get_properties": [],
-        "Properties.export_properties": [],
+        "Properties.get_properties": [
+            "# one packed device→host read instead of one per property",
+        ],
         "Properties._write_rows": [],
         "Properties.close": [],
         "Properties.flush": [
-            '"""Nothing is deferred in the port (the packed fetch is ROADMAP',
-            'A8): each step\'s rows are already written."""',
+            "vals = fetch_many(items, self.engine.fetch_real_dtype())",
+        ],
+        "Properties.run_fused_block": [
+            '"""Propagate ``nsteps`` as ONE block and write the per-step .dat',
+            "rows.",
+            "Wraps ``TDVPEngine.propagate_steps_collect``: each step collects",
+            "its PRE-step observables on the device (on the card inside the",
+            "replayed step graph), then the block is resolved with one packed",
+            "fetch — rows are identical to the per-step driver, and the host",
+            'reads the device once per block instead of once per step."""',
+            "vals = fetch_many(items, self.engine.fetch_real_dtype())",
         ],
     }),
     ("pytdscf_tpu/simulator.py", "pytdscf_torch/simulator.py", {

@@ -180,7 +180,6 @@ def _sim(**init):
     (_sim(), {"adaptive": True}, "A9"),
     (_sim(), {"splitting": "suzuki4"}, "A10"),
     (_sim(), {"splitting": "yoshida4"}, "A10"),
-    (_sim(), {"fetch_stride": 16}, "A8"),
     (_refuse_model("one_gate_to_apply"), {}, "A10"),
     (_refuse_model("kraus_op"), {}, "A10"),
     (_refuse_model("build_td_hamiltonian"), {}, "A10"),
