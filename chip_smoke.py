@@ -28,9 +28,9 @@ Phases (any failure exits nonzero, before the result line):
    c. one more step under ``torch.profiler`` (lines ``profile:``);
    d. ``bench.py``'s fused driver on a fresh engine: ``propagate_steps(dt,
       1)`` (a host step, then the capture of the step as a CUDA graph),
-      then 5 blocks of 4 replayed steps, counted: ⟨H⟩ of the end state,
-      contracted in complex128, within 5e-6 of the literal (the complex64
-      value within 1e-5: ROADMAP C3), the norm, the launches of every step
+      then 5 blocks of 4 replayed steps, counted: ⟨H⟩ of the end state
+      within 5e-6 of the literal, as the engine reports it (complex64)
+      and contracted in complex128, the norm, the launches of every step
       by route and cluster size as in b (counted through the replays'
       accounting), ``graph_steps`` 20 and ``eager_steps`` 1, no plain
       call, and the mean Krylov dimension of steps 1-5 within 0.05 of b's;
@@ -83,13 +83,29 @@ Phases (any failure exits nonzero, before the result line):
       2 GB; the MGS QR against its plain version on the chain's own
       gauge operands at every shape it takes there, (1024, 64) down to
       (4, 4), the (1024, 64) one through the cluster route (timed beside
-      ``torch.linalg.qr``), a second launch bit-identical;
-   b. one warm-up and ten timed steps, counted: bench_chi.py's invariants,
-      the electron populations within 6e-5 of its gold entry
+      ``torch.linalg.qr``), a second launch bit-identical; the one-pass
+      environment transfer (``env_precision="default"``, ``renorm_left_lo``
+      / ``_right_lo``: the one-pass chain with din ≠ dout) at the bulk
+      against its plain version (< 1e-4), a second launch bit-identical;
+   b. a host-driven witness: one warm-up step, whose every Krylov control
+      step's inputs are recorded and replayed through the control kernel
+      and its plain version (coefficients within 2e-5, the same flags and
+      status; the kernel and the plain version timed), then 3 steps under
+      ``torch.profiler`` and 2 timed (cut from 1 + 10: the replays below
+      carry the 1 + 10 steps);
+   c. a fresh engine through ``propagate_steps``: a host step and the
+      capture of the step as a CUDA graph with its Krylov iterations as IF
+      nodes, then the witness's 3 steps as replays under the profiler: the
+      same Krylov statistics, the same launches by the device's count
+      (each kernel a replay runs in an IF node adds one to its own counter
+      on the device; the profiler loses and misnames kernels inside IF-node bodies, so
+      the trace is held to the witness's only for the kernels outside
+      them, MGS); then 7 timed replays (1 + 10 steps in all): bench_chi.py's
+      invariants, the electron populations within 6e-5 of its gold entry
       (``bench_expected.json``), heff_lo + keff_lo launches equal to the
-      relaxed matvecs ``krylov_stats`` counts, every (1024, 64) gauge move
-      through the MGS cluster kernel, no plain-version call;
-   c. one more step under ``torch.profiler``;
+      relaxed matvecs ``krylov_stats`` counts, one control step per Krylov
+      iteration, every (1024, 64) gauge move through the MGS cluster
+      kernel, no plain-version call, the peak memory beside the witness's;
 8. the same radical pair at ``bench_chi.py``'s own default rung,
    "throughput" (its ``BENCH_PENV=1`` semantics): bf16x3 iteration-0
    matvecs and every in-sweep environment transfer through the bf16x3
@@ -104,10 +120,24 @@ Phases (any failure exits nonzero, before the result line):
       ``torch.einsum``'s times; the same checks at the bulk with d = 9 and
       d = 16 (w = 8) on seeded random operands, for both transfers and the
       H_eff matvec;
-   b. one warm-up and ten timed steps, counted: as 7b, and 34 environment
-      transfers per step through the kernel (374), one "high" matvec
-      launch per Krylov call;
-   c. one more step under ``torch.profiler``.
+   b. and c. as 7b and 7c, with 34 environment transfers per step through
+      the kernel and one "high" matvec launch per Krylov call;
+9. the χ=1024 radical pair through ``Simulator.propagate`` at "throughput"
+   from its Hartree product, 5 steps at ``fetch_stride`` 4 (a block of a
+   host step, the capture and 3 replays, then an inline step) against
+   stride 1: every ``populations.dat`` value within 1e-6;
+10. ``bench_chi.py``'s χ=2048 anchor (``BENCH_CHI=2048 BENCH_RP_NUC=6
+   BENCH_KRYLOV=8``) at "throughput": a host step and the capture; one
+   replayed step against the same step driven from the host (the same
+   Krylov statistics and launches); then 5 timed replays from the state
+   after the capture: its populations within 5e-5 of the gold entry
+   ``chi2048_nuc6_split1_lt2_dt1_steps5_complex64``, the launch gates of
+   7c, the peak memory, one more replayed step under the profiler.
+
+Every run of the chain gates the complex64 ⟨H⟩ it reports at 5e-6: the
+engine contracts ⟨H⟩ in complex128 and rounds only the value to
+complex64 (ROADMAP C3); ``energy64``, the same contraction divided by the
+norm and not rounded, is printed beside it and gates the long runs too.
 
 The second-to-last line of stdout is a JSON object with each kernel's
 launches, error, times and bound (the least time the card could take for
@@ -141,13 +171,6 @@ import numpy as np
 
 E_REF = 0.0182253410  # ⟨H⟩ of the chain (bench.py); energy is conserved
 E_TOL = 5.0e-06  # complex64 tolerance of bench.py
-# the complex64 ⟨H⟩ that the long runs report (17-21 steps; their gate is
-# E_TOL on the end state's energy64): 3.0e-6 to 5.5e-6 from the literal on
-# the card, where the JAX package's complex64 expectation of the same cores
-# reads 3.4e-8 to 1.2e-6 on the CPU (ROADMAP C3, tests/torch_energy_c64.py).
-# Held here until C3 is repaired; a bf16 pass (bench.py: ~4e-3 relative,
-# 7e-5 here) still fails it
-E32_TOL = 1.0e-05
 NORM_TOL = 1.0e-05
 LANCZOS_TOL = 5.0e-06  # ‖Δψ‖, tests/test_pallas_lanczos.py
 BOND = 30
@@ -181,6 +204,29 @@ RP_DT = 0.5
 RP_STEPS = 10  # timed steps after one warm-up step, as in bench_chi.py
 RP_KEY = "chi1024_nuc8_split1_lt2_dt1_steps10_complex64"
 RP_BULK_SITE = 8  # a (1024, 4, 1024) site
+# the host-driven witness of the replayed radical pair: after one warm-up
+# step, RP_HOST_STEPS steps traced (held to the same replayed steps), then
+# RP_HOST_TIMED steps timed (cut from 1 + 10 to keep the run short)
+RP_HOST_STEPS = 3
+RP_HOST_TIMED = 2
+# the radical pair through Simulator.propagate: one block of 4 (a host
+# step, the capture, 3 replays) and one inline step, against stride 1
+RP_SIM_STEPS = 5
+RP_SIM_STRIDE = 4
+# the χ=2048 anchor (bench_chi.py with BENCH_CHI=2048 BENCH_RP_NUC=6
+# BENCH_KRYLOV=8): 1 + 5 steps at "throughput", the 5 as graph replays
+CHI_ANCHOR = 2048
+ANCHOR_NUC = 6
+ANCHOR_KRYLOV = 8
+ANCHOR_STEPS = 5
+ANCHOR_KEY = "chi2048_nuc6_split1_lt2_dt1_steps5_complex64"
+# the Krylov control kernel vs its plain version on the radical pair's own
+# reduced matrices: the coefficients relative to the largest (float32
+# Taylor products in another order; tests/test_torch_krylov.py's bar), the
+# flags and status equal unless the error lies within 1e-3 of the
+# threshold (a decision at round-off)
+CTL_TOL = 2.0e-05
+CTL_EDGE = 1.0e-03
 # relaxed matvec kernel vs its plain version, relative to the output norm:
 # the same bf16 rounding points, float32 sums in another order.  On the
 # chain's operands the kernels read 0 to 9.2e-6 and one bf16 rounding more
@@ -216,6 +262,11 @@ TRACED_KERNELS = {
     "site_step_kernel": ("site_step", "block"),
     "site_step_cluster_kernel": ("site_step", "cluster"),
 }
+# every kernel of the port's sources (the traced launches by name): the
+# staged GEMMs and their planes kernel (chain_tc.cu, keff_tc.cu), the
+# Krylov control step, MGS, Lanczos, the fused site
+PORT_KERNELS = ("cgemm_kernel", "planes_kernel", "krylov_ctl_kernel",
+                "mgs_qr", "lanczos_expm", "site_step")
 MARKER = "spin_kernel"  # torch.cuda._sleep
 MARK_CYCLES = 1000
 TRACE_SETTLE_S = 0.5
@@ -733,7 +784,7 @@ def traced_launches(prof) -> dict:
     grid (one cluster of ``grid`` CTAs), with the marker kernels
     (``markers``).  Graph replays launch their kernel nodes on the card,
     and the trace records each like any other launch."""
-    out = {**launch_record(), "markers": 0}
+    out = {**launch_record(), "markers": 0, "by_name": {}}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -748,6 +799,9 @@ def traced_launches(prof) -> dict:
             out["markers"] += 1
             marks.append(float(e["ts"]))
             continue
+        if any(k in name for k in PORT_KERNELS):
+            ends = [min(ends[0], float(e["ts"])), max(ends[1], float(e["ts"]))]
+            out["by_name"][name] = out["by_name"].get(name, 0) + 1
         for short, (kernel, way) in TRACED_KERNELS.items():
             if short + "(" in name:
                 ends = [min(ends[0], float(e["ts"])),
@@ -789,7 +843,7 @@ def scaled(rec: dict, num: int, den: int = 1) -> dict:
 
     return {k: ({kk: one(vv) for kk, vv in v.items()} if isinstance(v, dict)
                 else one(v)) for k, v in rec.items()
-            if k not in ("markers", "lost")}
+            if k not in ("markers", "lost", "by_name")}
 
 
 def launch_text(rec: dict) -> str:
@@ -812,6 +866,7 @@ def path_launches(rec: dict) -> dict:
 
 def counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
+    from pytdscf_torch.mps import cuda_krylov as CK
     from pytdscf_torch.mps import cuda_lanczos as CL
     from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_qr as CQ
@@ -820,8 +875,9 @@ def counters() -> dict:
 
     return {"lanczos_expm": CL.lanczos_expm, "mgs_qr": CQ.mgs_qr,
             "heff_lo": CM.heff_lo, "keff_lo": CM.keff_lo,
-            "renorm_hi": CR.renorm_hi, "matvec_hi": CR.matvec_hi,
-            "site_step": CS.site_step_fused}
+            "renorm_hi": CR.renorm_hi, "renorm_lo": CR.renorm_lo,
+            "matvec_hi": CR.matvec_hi, "site_step": CS.site_step_fused,
+            "krylov_ctl": CK.krylov_ctl}
 
 
 def reset_counts() -> None:
@@ -937,11 +993,11 @@ def mean_krylov(steps) -> float:
 
 
 def energy64(engine) -> float:
-    """⟨H⟩/⟨Ψ|Ψ⟩ of the engine's state, contracted in complex128 on the
-    card.  The complex64 contraction (``expectation``, the Simulator's
-    properties) reads 3e-6 to 5.5e-6 from the literal after 17-21 steps
-    here (ROADMAP C3), so the long runs hold this value to ``E_TOL`` and
-    the complex64 ones to ``E32_TOL``."""
+    """⟨H⟩/⟨Ψ|Ψ⟩ of the engine's state, contracted wholly in complex128 on
+    the card: a second reading beside the complex64 value the engine
+    reports (``expectation``, the Simulator's rows), which contracts ⟨H⟩
+    in complex128 too but rounds it to complex64 and does not divide by
+    the norm (ROADMAP C3)."""
     import torch
 
     from pytdscf_torch.mps import kernels as K
@@ -1021,8 +1077,8 @@ def phase_chain_graph(eager) -> tuple[dict, float]:
             "graph chain: cores not finite")
     require(abs(energy - E_REF) <= E_TOL,
             f"graph chain: energy {energy:.10f} vs {E_REF} (tol {E_TOL})")
-    require(abs(e32 - E_REF) <= E32_TOL, f"graph chain: complex64 energy "
-            f"{e32:.10f} vs {E_REF} (tol {E32_TOL})")
+    require(abs(e32 - E_REF) <= E_TOL, f"graph chain: complex64 energy "
+            f"{e32:.10f} vs {E_REF} (tol {E_TOL})")
     require(abs(norm - 1.0) <= NORM_TOL, f"graph chain: norm {norm:.8f}")
     per, sizes = lanczos_routes(engine)
     want = {k: steps * n for k, n in per.items()}
@@ -1332,10 +1388,10 @@ def check_simulator(tag: str, run, chain_k: float, stride: int) -> tuple:
     site route: energy and norm, a row per step, the launches of every
     step by route, no plain call, the Krylov calls and their mean dimension
     within ``KRYLOV_TOL`` of ``chain_k`` (another run's over the same
-    steps).  The run of ``SIM_STEPS`` steps holds the energies it reports
-    (complex64) to the literal within ``E_TOL``; the longer runs hold the
-    end state's ``energy64`` to it and the reported ones within
-    ``E32_TOL``.  Returns (mean Krylov dimension, loop s/step)."""
+    steps).  Every run holds the complex64 energies it reports (the last
+    pre-step row and the end state's ``expectation``) to the literal within
+    ``E_TOL``, and the longer runs the end state's ``energy64`` too.
+    Returns (mean Krylov dimension, loop s/step)."""
     import torch
 
     engine, steps = run.engine, run.steps
@@ -1367,7 +1423,7 @@ def check_simulator(tag: str, run, chain_k: float, stride: int) -> tuple:
     require(all(bool(torch.isfinite(c).all()) for c in engine.cores[0]),
             f"{tag}: cores not finite")
     gates = [(run.energy, E_TOL), (e_end, E_TOL)] if steps == SIM_STEPS \
-        else [(e64, E_TOL), (run.energy, E32_TOL), (e_end, E32_TOL)]
+        else [(e64, E_TOL), (run.energy, E_TOL), (e_end, E_TOL)]
     for e, tol in gates:
         require(abs(e - E_REF) <= tol, f"{tag}: energy {e:.10f} vs "
                 f"{E_REF} (tol {tol})")
@@ -1541,38 +1597,46 @@ def phase_simulator_strided(chain_k: float, fused: bool) -> dict:
 
 
 # ------------------------------------------------- χ=1024 radical pair
-def build_rp_engine(device, preset: str):
+def rp_model(chi: int = CHI, nuc: int = RP_NUC):
+    """bench_chi.py's radical-pair Liouvillian (its lines 113-127): nuc+nuc
+    nuclei, split electron sites, at bond dimension chi: (basis, model,
+    first electron site)."""
+    from pytdscf_torch.model import Model
+    from pytdscf_torch.models.radical_pair import radical_pair_liouvillian
+
+    hfc = [round(0.15 + 0.07 * k, 4) for k in range(nuc)]
+    basis, mpo, ele = radical_pair_liouvillian(
+        hfcs_1=[(2, a) for a in hfc], hfcs_2=[(2, a) for a in hfc],
+        split_electron=True,
+    )
+    return basis, Model(basis, {"hamiltonian": mpo}, space="liouville",
+                        bond_dim=chi), ele
+
+
+def build_rp_engine(device, preset: str, chi: int = CHI, nuc: int = RP_NUC,
+                    krylov: int = RP_KRYLOV):
     """bench_chi.py's defaults (its lines 100-189) on the port, at a
     precision rung ("balanced" or "throughput"): the 8+8-nucleus
-    split-electron radical-pair Liouvillian, χ=1024, the singlet product
-    state plus ε=1e-4 noise from ``default_rng(42)``, Arnoldi with relaxed
-    Krylov from iteration 1."""
+    split-electron radical-pair Liouvillian, χ=1024 (or ``chi``, ``nuc``
+    and the Krylov buffer ``krylov`` of its χ=2048 anchor), the singlet
+    product state plus ε=1e-4 noise from ``default_rng(42)``, Arnoldi with
+    relaxed Krylov from iteration 1."""
     from pytdscf_torch.config import Config
-    from pytdscf_torch.model import Model
-    from pytdscf_torch.models.radical_pair import (
-        radical_pair_liouvillian,
-        singlet_product_state,
-    )
+    from pytdscf_torch.models.radical_pair import singlet_product_state
     from pytdscf_torch.mps.lattice import (
         alloc_hartree_product,
         bond_dims_for_site,
     )
     from pytdscf_torch.mps.tdvp import TDVPEngine
 
-    hfc = [round(0.15 + 0.07 * k, 4) for k in range(RP_NUC)]
-    basis, mpo, ele = radical_pair_liouvillian(
-        hfcs_1=[(2, a) for a in hfc], hfcs_2=[(2, a) for a in hfc],
-        split_electron=True,
-    )
-    model = Model(basis, {"hamiltonian": mpo}, space="liouville",
-                  bond_dim=CHI)
+    basis, model, ele = rp_model(chi, nuc)
     phys = [b.nstate for b in basis]
     vecs = singlet_product_state(basis, ele, split_electron=True)
     cores = alloc_hartree_product(phys, 4, vecs, space="liouville")
     rng = np.random.default_rng(42)
     noisy = []
     for p, c in enumerate(cores):
-        m_l, m_r = bond_dims_for_site(phys, p, CHI)
+        m_l, m_r = bond_dims_for_site(phys, p, chi)
         full = np.zeros((m_l, phys[p], m_r), dtype=np.complex128)
         full[: c.shape[0], :, : c.shape[2]] = c
         scale = 1.0e-04 * max(np.abs(c).max(), 1e-30)
@@ -1581,7 +1645,7 @@ def build_rp_engine(device, preset: str):
         noisy.append(full)
     config = Config(
         space="liouville", integrator="arnoldi", thresh_exp=RP_THRESH,
-        max_krylov=RP_KRYLOV, dtype="complex64", conserve_norm=False,
+        max_krylov=krylov, dtype="complex64", conserve_norm=False,
     ).with_precision_preset(preset)
     return TDVPEngine([noisy], model.hamiltonian, config, device), ele
 
@@ -1655,6 +1719,7 @@ def check_matvec(engine, results) -> dict:
         # library-call yardstick, never called by the port) and its FLOPs
         lib_h = lib_k = None
         if p == RP_BULK_SITE:
+            transfer_err = check_renorm_lo(engine, L, R, p)
             # (operands bound now: the loop rebinds the names)
             lib_h = (lambda psi=psi, R=R, W=W, L=L: torch.einsum(
                          "kjr,xcr,aijc,bak->bix", psi, R, W, L),
@@ -1706,7 +1771,41 @@ def check_matvec(engine, results) -> dict:
                      f"{results[name]['bound_ms']:.4f} ms")
         log(line)
         worst[name] = max(worst.get(name, 0.0), err)
-    worst["heff_lo"] = max(worst["heff_lo"], check_heff_wide())
+    worst["heff_lo"] = max(worst["heff_lo"], check_heff_wide(),
+                           transfer_err)
+    return worst
+
+
+def check_renorm_lo(engine, L, R, p: int) -> float:
+    """The one-pass environment transfer (``env_precision="default"``:
+    ``chain_tc.cu``'s one-pass chain in its din ≠ dout mode) against its
+    plain version on the card, both ways through site
+    ``p`` with its own blocks ``L`` and ``R``: the largest error."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_renorm as CR
+    from pytdscf_torch.mps import kernels as K
+
+    core, W = engine.cores[0][p].contiguous(), engine.W[p]
+    worst = 0.0
+    for way, kernel, plain, blk in (
+            ("left", CR.renorm_left_lo, K.renorm_block_left_lo, L),
+            ("right", CR.renorm_right_lo, K.renorm_block_right_lo, R)):
+        got = kernel(blk, core, W, core)
+        again = kernel(blk, core, W, core)
+        want = plain(blk, core, W, core)
+        where = f"renorm_lo {way} site {p}"
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), f"{where}: not finite")
+        require(torch.equal(got, again), f"{where}: a second launch gave "
+                "another result")
+        rel = float(torch.linalg.vector_norm(got - want)
+                    / torch.linalg.vector_norm(want))
+        err = float(torch.max(torch.abs(got - want)))
+        require(rel < MATVEC_TOL, f"{where}: rel {rel:.3e} vs plain")
+        log(f"{where}: block {tuple(blk.shape)} → {tuple(got.shape)} (MPO "
+            f"{W.shape[0]} → {W.shape[3]}) rel {rel:.3e} max|Δ| {err:.3e}")
+        worst = max(worst, err)
     return worst
 
 
@@ -1903,18 +2002,218 @@ def check_chain3(engine, results) -> dict:
     return worst
 
 
+def record_ctl(run) -> list:
+    """``run()`` with every Krylov control step's inputs recorded: (T, G,
+    the previous coefficients, keywords), cloned on the card before the
+    step wrote its outputs."""
+    from pytdscf_torch.mps import cuda_krylov as CK
+    from pytdscf_torch.mps import integrator
+
+    recs = []
+
+    def recorded(T, G, c, flags, status, **kw):
+        recs.append((T.clone(), None if G is None else G.clone(), c.clone(),
+                     dict(kw)))
+        return CK.krylov_ctl(T, G, c, flags, status, **kw)
+
+    # the program reaches the control step through its module reference:
+    # give it one whose krylov_ctl records first
+    integrator.CK = SimpleNamespace(active=CK.active, krylov_ctl=recorded)
+    try:
+        run()
+    finally:
+        integrator.CK = CK
+    return recs
+
+
+def check_krylov_ctl(recs, results, tag: str) -> float:
+    """The Krylov control kernel against its plain version on a radical-pair
+    step's own reduced matrices (every control step of the step): the new
+    coefficients within ``CTL_TOL`` of the plain ones (relative to the
+    largest), the flags and status equal (but where the plain error lies
+    within ``CTL_EDGE`` of the threshold); at the largest dimension of the
+    step, the kernel's and the plain version's times.  Returns the largest
+    error."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_krylov as CK
+
+    worst, edges = 0.0, 0
+    for T, G, c0, kw in recs:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            c = c0.clone().to(dev)
+            kmax = c.shape[0]
+            flags = torch.zeros(kmax + 1, dtype=torch.bool, device=dev)
+            status = torch.zeros(3, dtype=torch.int32, device=dev)
+            fn = CK.krylov_ctl if dev == "cuda" else CK.krylov_ctl_plain
+            fn(T.to(dev), None if G is None else G.to(dev), c, flags, status,
+               **kw)
+            out[dev] = (c.cpu(), flags.cpu(), status.cpu())
+        (ck, fk, sk), (cp, fp, sp) = out["cuda"], out["cpu"]
+        err = float(torch.max(torch.abs(ck - cp))) / max(
+            1.0, float(torch.max(torch.abs(cp))))
+        worst = max(worst, err)
+        d = (cp - c0.cpu()).to(torch.complex128)
+        m = kw["k"] + 1
+        if G is None:
+            e = float(torch.linalg.vector_norm(d))
+        else:
+            g = G.cpu().to(torch.complex128)[:m, :m]
+            e = math.sqrt(max(float((d[:m].conj() @ (g @ d[:m])).real), 0.0))
+        edge = kw["k"] > 0 and abs(e - kw["thresh"]) <= CTL_EDGE * kw["thresh"]
+        edges += edge
+        require(edge or (torch.equal(fk, fp) and torch.equal(sk, sp)),
+                f"{tag}: krylov_ctl at k={kw['k']}: flags {fk.tolist()} "
+                f"status {sk.tolist()} != plain {fp.tolist()} {sp.tolist()}")
+    require(worst <= CTL_TOL, f"{tag}: krylov_ctl coefficients {worst:.2e} "
+            f"from plain (tol {CTL_TOL})")
+    T, G, c0, kw = max(recs, key=lambda r: r[3]["k"])
+    m, kmax = kw["k"] + 1, c0.shape[0]
+    dev = T.device
+    flags = torch.zeros(kmax + 1, dtype=torch.bool, device=dev)
+    status = torch.zeros(3, dtype=torch.int32, device=dev)
+
+    def call(fn):
+        return lambda: fn(T, G, c0.clone(), flags, status, **kw)
+
+    ms = cuda_ms(call(CK.krylov_ctl), 200)
+    plain_ms = cuda_ms(call(CK.krylov_ctl_plain), 10)
+    # the work: 12 + s dense m×m complex products, 8 flops a multiply-add
+    A = (complex(kw["scale"]) * T[:m, :m].cpu().to(torch.complex128))
+    norm1 = float(torch.max(torch.sum(torch.abs(A), dim=0)))
+    sq = int(min(max(math.ceil(math.log2(max(norm1, 1e-30))) + 3, 0), 64))
+    flops = 8.0 * (12 + sq) * m ** 3
+    io = nbytes(T, c0) + c0.numel() * c0.element_size() + kmax + 1 + 12 + (
+        0 if G is None else nbytes(G))
+    log(f"{tag}: krylov_ctl on the step's {len(recs)} control steps: max "
+        f"|Δc| {worst:.2e} (tol {CTL_TOL}), flags and status equal "
+        f"({edges} at the threshold's edge); at k_used={m} ({sq} squarings)"
+        f" {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if "krylov_ctl" not in results:
+        results["krylov_ctl"] = {"ms": ms, "plain_ms": plain_ms,
+                                 **bound(flops, PEAK_FP32, io),
+                                 "library_ms": None, "k_used": m}
+    return worst
+
+
+def rp_launches() -> dict:
+    """The radical pair's kernel counters, by kernel."""
+    return {name: c.launches for name, c in counters().items()}
+
+
+def host_snapshot(engine):
+    """A function that puts a host-driven engine back to its state now,
+    with its Krylov telemetry and every counter at zero: a traced window
+    that runs again runs the same steps."""
+    cores = [c.clone() for c in engine.cores[0]]
+    env = [(b.clone(), g.clone()) for b, g in engine.env_stack]
+    side = engine._env_side
+
+    def restore():
+        engine.cores = [[c.clone() for c in cores]]
+        engine.env_stack = [(b.clone(), g.clone()) for b, g in env]
+        engine._env_side = side
+        engine.krylov_stats()
+        reset_counts()
+
+    return restore
+
+
+def program_snapshot(engine):
+    """:func:`host_snapshot` for an engine whose state is its step
+    program's buffers."""
+    from pytdscf_torch.mps.step_graph import copy_all
+
+    (prog,) = engine._programs.values()
+    saved = [b.clone() for b in prog.buffers]
+
+    def restore():
+        copy_all(prog.buffers, saved)
+        prog.install(engine)
+        engine.krylov_stats()
+        reset_counts()
+
+    return restore
+
+
+def rp_gold(engine, ele, key: str, tag: str) -> float:
+    """bench_chi.py's invariants and its blessed-population check of the
+    ``key`` entry of ``bench_expected.json``: the drift from gold."""
+    tr = engine.trace()
+    rdm = engine.reduced_density_liouville((0,) * ele + (2, 2))
+    pops = np.real(np.einsum("aabb->ab", rdm)).reshape(-1)
+    with open(Path(__file__).resolve().parent / "bench_expected.json") as fh:
+        gold = json.load(fh)[key]
+    drift = float(np.max(np.abs(pops - np.asarray(gold["pops"]))))
+    log(f"{tag}: trace {tr.real:.6f}{tr.imag:+.2e}j; populations "
+        f"{np.round(pops, 6).tolist()}; drift from gold [{key}] "
+        f"{drift:.2e} (tol {gold['tol']:g})")
+    require(np.isfinite(tr.real) and bool(np.all(np.isfinite(pops))),
+            f"{tag}: non-finite trace/populations: {tr}, {pops}")
+    require(0.90 <= tr.real <= 1.0001, f"{tag}: trace {tr.real:.6f} "
+            "outside the Haberkorn-decay window [0.90, 1.0001]")
+    require(abs(tr.imag) <= 1e-3, f"{tag}: trace imaginary part "
+            f"{tr.imag:.2e}")
+    require(bool(np.all(pops >= -1e-4)), f"{tag}: negative population "
+            f"{pops}")
+    require(abs(float(np.sum(pops)) - tr.real) <= 2e-3,
+            f"{tag}: Σpops {float(np.sum(pops)):.6f} != trace {tr.real:.6f}")
+    require(drift <= float(gold["tol"]),
+            f"{tag}: populations drift {drift:.2e} > {gold['tol']} from gold")
+    return drift
+
+
+def rp_launch_gates(engine, tag: str, steps: int, stats, n: dict) -> None:
+    """The launch gates of ``steps`` radical-pair steps from their counters
+    ``n`` and Krylov statistics ``stats``: every relaxed matvec through a
+    kernel (``krylov_stats`` counts them on the device), every Krylov
+    iteration through one control step, every MGS gauge move on its
+    route's kernel, at "throughput" every in-sweep transfer and each Krylov
+    call's exact-prefix matvec through the bf16x3 kernel, no plain call."""
+    avg_k, calls, _, relaxed = stats
+    moves = mgs_moves(engine)
+    require(relaxed > 0, f"{tag}: no relaxed matvec ran")
+    require(n["heff_lo"] + n["keff_lo"] == relaxed,
+            f"{tag}: heff_lo + keff_lo launches {n['heff_lo']} + "
+            f"{n['keff_lo']} != {relaxed} relaxed matvecs")
+    require(n["heff_lo"] > 0 and n["keff_lo"] > 0,
+            f"{tag}: a matvec kernel was never launched")
+    require(n["krylov_ctl"] == round(avg_k * calls),
+            f"{tag}: krylov_ctl launches {n['krylov_ctl']} != "
+            f"{round(avg_k * calls)} Krylov iterations")
+    require(plain_calls() == 0, f"{tag}: a plain version ran on the card")
+    require(n["lanczos_expm"] == n["site_step"] == 0,
+            f"{tag}: a Lanczos kernel ran on the Arnoldi path")
+    require(n["mgs_qr"] == steps * len(moves),
+            f"{tag}: qr launches {n['mgs_qr']} != {steps} × {len(moves)}")
+    if engine.config.env_precision == "high":
+        transfers = steps * 2 * (engine.nsite - 1)
+        require(n["renorm_hi"] == transfers,
+                f"{tag}: renorm_hi launches {n['renorm_hi']} != {transfers}")
+        require(n["matvec_hi"] == calls,
+                f"{tag}: matvec_hi launches {n['matvec_hi']} != {calls} "
+                "Krylov calls")
+    else:
+        require(n["renorm_hi"] == n["matvec_hi"] == 0,
+                f"{tag}: the bf16x3 kernel ran on the float32 rung")
+
+
 def phase_radical_pair(times, preset: str) -> dict:
     """The χ=1024 radical-pair Liouville MPDO of bench_chi.py at a
-    precision rung: the kernel checks, 1 warm-up and 10 timed steps, then
-    bench_chi.py's invariants, its gold populations and the launch counts.
+    precision rung.  The kernel checks; a host-driven witness (a warm-up
+    step, whose Krylov control steps check the control kernel, then
+    ``RP_HOST_STEPS`` steps under the profiler and ``RP_HOST_TIMED``
+    timed); then a fresh engine through ``propagate_steps``: a host step
+    and the capture of the step as a CUDA graph (its Krylov iterations IF
+    nodes), the same ``RP_HOST_STEPS`` steps as replays under the profiler
+    (Krylov statistics, counted and traced launches equal to the
+    witness's), then the rest of 1 + ``RP_STEPS`` steps as timed replays:
+    bench_chi.py's invariants, its gold populations, the launch gates.
     Returns {kernel: (launches, max |Δ| against plain or None)}."""
     import torch
 
-    from pytdscf_torch.mps import cuda_lanczos as CL
-    from pytdscf_torch.mps import cuda_matvec as CM
     from pytdscf_torch.mps import cuda_qr as CQ
-    from pytdscf_torch.mps import cuda_renorm as CR
-    from pytdscf_torch.mps import cuda_site as CS
 
     tag = f"radical pair [{preset}]"
     t0 = time.perf_counter()
@@ -1935,91 +2234,259 @@ def phase_radical_pair(times, preset: str) -> dict:
         err["mgs_qr"] = check_qr_gauge(engine, times)
     torch.cuda.empty_cache()
 
-    # ---- the main path, counted: 1 warm-up + RP_STEPS timed steps
+    # ---- host-driven witness
     engine.krylov_stats()
     reset_counts()
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine.propagate(RP_DT)
+    recs = record_ctl(lambda: engine.propagate(RP_DT))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    step_s = []
-    for _ in range(RP_STEPS):
+    err["krylov_ctl"] = check_krylov_ctl(recs, times, tag)
+    del recs
+    restore = host_snapshot(engine)
+    busy_h, seen_h = profile_run(lambda: (restore(), [
+        engine.propagate(RP_DT) for _ in range(RP_HOST_STEPS)]), count=True)
+    stats_h, n_h = engine.krylov_stats(), rp_launches()
+    host_s = []
+    for _ in range(RP_HOST_TIMED):
         t0 = time.perf_counter()
         engine.propagate(RP_DT)
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    n_h, n_k = CM.heff_lo.launches, CM.keff_lo.launches
-    n_qr, n_lz = CQ.mgs_qr.launches, CL.lanczos_expm.launches
-    n_r, n_m = CR.renorm_hi.launches, CR.matvec_hi.launches
-    routes = dict(CQ.mgs_qr.route_launches)
-    plain = plain_calls()
-    avg_k, calls, capped, relaxed = engine.krylov_stats()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    tr = engine.trace()
-    rdm = engine.reduced_density_liouville((0,) * ele + (2, 2))
-    pops = np.real(np.einsum("aabb->ab", rdm)).reshape(-1)
-    median = float(np.median(step_s))
-    tflops = engine.flops_estimate(max(avg_k, 1.0)) / median / 1e12
-    with open(Path(__file__).resolve().parent / "bench_expected.json") as fh:
-        gold = json.load(fh)[RP_KEY]
-    drift = float(np.max(np.abs(pops - np.asarray(gold["pops"]))))
-    log(f"{tag}: warm-up {warm_s:.3f} s; s/step "
-        f"{[round(s, 4) for s in step_s]} (median {median:.4f}); "
-        f"~{tflops:.1f} algorithmic TFLOP/s; avg Krylov {avg_k:.3f} over "
-        f"{calls} calls, cap hits {capped}; relaxed matvecs {relaxed}; "
-        f"launches: heff_lo {n_h}, keff_lo {n_k}, qr {n_qr} {routes}, "
-        f"lanczos {n_lz}, "
-        f"renorm_hi {n_r}, matvec_hi {n_m}; peak device memory "
-        f"{peak_gb:.2f} GB")
-    log(f"{tag}: trace {tr.real:.6f}{tr.imag:+.2e}j; populations "
-        f"{np.round(pops, 6).tolist()}; drift from gold [{RP_KEY}] "
-        f"{drift:.2e} (tol {gold['tol']:g})")
-    # bench_chi.py's invariants and its blessed-population check
-    require(np.isfinite(tr.real) and bool(np.all(np.isfinite(pops))),
-            f"non-finite trace/populations: {tr}, {pops}")
-    require(0.90 <= tr.real <= 1.0001, f"trace {tr.real:.6f} outside "
-            "the Haberkorn-decay window [0.90, 1.0001]")
-    require(abs(tr.imag) <= 1e-3, f"trace imaginary part {tr.imag:.2e}")
-    require(bool(np.all(pops >= -1e-4)), f"negative population {pops}")
-    require(abs(float(np.sum(pops)) - tr.real) <= 2e-3,
-            f"Σpops {float(np.sum(pops)):.6f} != trace {tr.real:.6f}")
-    require(drift <= float(gold["tol"]),
-            f"populations drift {drift:.2e} > {gold['tol']} from gold")
-    # every relaxed matvec went through a kernel, nothing through a plain one
-    require(relaxed > 0, "no relaxed matvec ran")
-    require(n_h + n_k == relaxed,
-            f"heff_lo + keff_lo launches {n_h} + {n_k} != {relaxed} "
-            "relaxed matvecs")
-    require(n_h > 0 and n_k > 0, "a matvec kernel was never launched")
-    require(plain == 0, f"{plain} plain-version calls on the card")
-    require(n_lz == 0, "the Lanczos kernel ran on the Arnoldi path")
-    require(CS.site_step_fused.launches == 0,
-            "the fused site kernel ran on the Arnoldi path")
-    steps, moves = 1 + RP_STEPS, mgs_moves(engine)
-    require(n_qr == steps * len(moves),
-            f"qr launches {n_qr} != {steps} × {len(moves)}")
-    by_route = {way: steps * sum(CQ.route(*shape) == way
+        host_s.append(time.perf_counter() - t0)
+    peak_h = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag}, host-driven: warm-up {warm_s:.3f} s; s/step "
+        f"{[round(x, 4) for x in host_s]}; {RP_HOST_STEPS} steps traced "
+        f"keep the device {100 * busy_h:.1f} % busy; Krylov {stats_h}; "
+        f"launches {n_h}; peak device memory {peak_h:.2f} GB")
+    del engine, restore
+    torch.cuda.empty_cache()
+
+    # ---- the same steps as graph replays, through propagate_steps
+    engine, _ = build_rp_engine("cuda", preset)
+    engine.right_canonicalize()
+    engine.krylov_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.propagate_steps(RP_DT, 1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (prog,) = engine._programs.values()
+    require(engine.capturable() and prog.graph is not None
+            and prog.branches is not None,
+            f"{tag}: the step was not captured with its IF nodes")
+    restore = program_snapshot(engine)
+    busy_g, seen_g = profile_run(lambda: (
+        restore(), engine.propagate_steps(RP_DT, RP_HOST_STEPS)), count=True)
+    stats_g, n_g = engine.krylov_stats(), rp_launches()
+    log(f"{tag}, graph: host step, warm-up capture and capture {first_s:.3f}"
+        f" s (capture and instantiate {prog.capture_s:.3f} s); "
+        f"{RP_HOST_STEPS} replays traced keep the device "
+        f"{100 * busy_g:.1f} % busy; Krylov {stats_g}; launches {n_g}")
+    require(stats_g == stats_h, f"{tag}: replayed Krylov statistics "
+            f"{stats_g} != host-driven {stats_h}")
+    require(n_g == n_h, f"{tag}: replayed launches (device-counted) {n_g} "
+            f"!= host-driven {n_h}")
+    # the profiler records every launch of the host-driven steps, but not
+    # the kernels that a replay runs inside an IF node's body: it loses
+    # some and names others wrongly (on an H100 with torch 2.11: 931
+    # control kernels traced where the device counted 1010, 863 planes
+    # kernels where 800 ran).  So the kernels outside every body (MGS) are
+    # held to the trace
+    # exactly, and the bodies' launches to the device's count above
+    host_seen, graph_seen = seen_h["by_name"], seen_g["by_name"]
+    outside = [k for k in host_seen if "mgs_qr" in k]
+    require(outside and all(graph_seen.get(k) == host_seen[k]
+                            for k in outside),
+            f"{tag}: traced MGS launches of the replays "
+            f"{[graph_seen.get(k) for k in outside]} != the host-driven "
+            f"steps' {[host_seen[k] for k in outside]}")
+    log(f"{tag}: traced launches, host-driven steps against replays "
+        "(inside IF-node bodies the trace is not a count): "
+        + ", ".join(f"{k.split('(')[0].split('::')[-1][:40]} "
+                    f"{host_seen[k]}/{graph_seen.get(k, 0)}"
+                    for k in sorted(host_seen)))
+    # ---- the rest of the 1 + RP_STEPS steps, replayed and timed
+    reset_counts()
+    engine.krylov_stats()
+    nrest = RP_STEPS - RP_HOST_STEPS
+    t0 = time.perf_counter()
+    engine.propagate_steps(RP_DT, nrest)
+    torch.cuda.synchronize()
+    replay_s = (time.perf_counter() - t0) / nrest
+    peak_g = torch.cuda.max_memory_allocated() / 1e9
+    stats, n = engine.krylov_stats(), rp_launches()
+    tflops = engine.flops_estimate(max(stats[0], 1.0)) / replay_s / 1e12
+    log(f"{tag}, graph: {nrest} replays {replay_s:.4f} s/step "
+        f"(~{tflops:.1f} algorithmic TFLOP/s); avg Krylov {stats[0]:.3f} "
+        f"over {stats[1]} calls, cap hits {stats[2]}; relaxed matvecs "
+        f"{stats[3]}; launches {n}, qr by route "
+        f"{dict(CQ.mgs_qr.route_launches)}; graph_steps "
+        f"{engine.graph_steps}, eager_steps {engine.eager_steps}; peak "
+        f"device memory {peak_g:.2f} GB (host-driven {peak_h:.2f} GB)")
+    require((engine.graph_steps, engine.eager_steps) == (RP_STEPS, 1),
+            f"{tag}: graph_steps {engine.graph_steps}, eager_steps "
+            f"{engine.eager_steps} != ({RP_STEPS}, 1)")
+    rp_gold(engine, ele, RP_KEY, tag)
+    rp_launch_gates(engine, tag, nrest, stats, n)
+    moves = mgs_moves(engine)
+    by_route = {way: nrest * sum(CQ.route(*shape) == way
                                  for _, _, shape in moves)
                 for way in CQ.ROUTES}
+    routes = dict(CQ.mgs_qr.route_launches)
     require(routes == by_route and by_route["cluster"] > 0,
-            f"qr launches by route {routes} != {by_route}")
-    if high:
-        # every in-sweep transfer (nsite − 1 per half-sweep) and every
-        # exact-prefix matvec (one per Krylov call) went through the kernel
-        transfers = steps * 2 * (engine.nsite - 1)
-        require(n_r == transfers,
-                f"renorm_hi launches {n_r} != {steps} × "
-                f"{2 * (engine.nsite - 1)}")
-        require(n_m == calls,
-                f"matvec_hi launches {n_m} != {calls} Krylov calls")
-    else:
-        require(n_r == n_m == 0, "the bf16x3 kernel ran on the float32 rung")
-    profile_step(engine, RP_DT)
-    counts = {"heff_lo": n_h, "keff_lo": n_k, "mgs_qr": n_qr,
-              "renorm_hi": n_r, "matvec_hi": n_m}
-    return {**{name: (n, err.get(name)) for name, n in counts.items() if n},
+            f"{tag}: qr launches by route {routes} != {by_route}")
+    return {**{name: (v, err.get(name)) for name, v in n.items() if v},
+            "mgs_qr_routes": routes}
+
+
+def phase_rp_simulator() -> dict:
+    """The χ=1024 radical pair through ``Simulator.propagate`` at
+    "throughput" (Arnoldi, ``conserve_norm=False``, bench_chi.py's model
+    from its Hartree product): ``RP_SIM_STEPS`` steps at ``fetch_stride``
+    ``RP_SIM_STRIDE`` (a block of a host step, the capture and replays,
+    then an inline step) against stride 1: every ``populations.dat`` value
+    within ``ROW_TOL``."""
+    import torch
+
+    from pytdscf_torch import Simulator, units
+    from pytdscf_torch.models.radical_pair import singlet_product_state
+    from pytdscf_torch.mps import cuda_qr as CQ
+
+    basis, model, ele = rp_model()
+    model.init_HartreeProduct = [
+        singlet_product_state(basis, ele, split_electron=True)]
+    rows, runs = {}, {}
+    cwd = os.getcwd()
+    for stride in (1, RP_SIM_STRIDE):
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sim = Simulator("chip_rp", model)
+                _, wf = sim.propagate(
+                    stepsize=RP_DT * units.au_in_fs, maxstep=RP_SIM_STEPS,
+                    autocorr=False, energy=False, conserve_norm=False,
+                    integrator="arnoldi", thresh_sil=RP_THRESH,
+                    precision_preset="throughput", fetch_stride=stride)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                with open(os.path.join("chip_rp_prop", "populations.dat")) as fh:
+                    lines = [ln for ln in fh if not ln.startswith("#")]
+            finally:
+                os.chdir(cwd)
+        rows[stride] = np.asarray([[float(x) for x in ln.split()]
+                                   for ln in lines])
+        eng = wf.engine
+        diag = sim.diagnostics
+        runs[stride] = (eng.graph_steps, eng.eager_steps, rp_launches(),
+                        dict(CQ.mgs_qr.route_launches))
+        log(f"radical pair, Simulator at fetch_stride {stride}: "
+            f"{RP_SIM_STEPS} steps in {wall:.2f} s (set-up included); "
+            f"sweep {diag.elapsed.get('sweep', 0.0) / RP_SIM_STEPS:.4f} "
+            f"s/step; graph_steps {eng.graph_steps}, eager_steps "
+            f"{eng.eager_steps}; launches {runs[stride][2]}; last row "
+            f"{lines[-1].strip()!r}")
+        require(plain_calls() == 0, "radical pair Simulator: a plain "
+                "version ran on the card")
+        del sim, wf, eng
+        torch.cuda.empty_cache()
+    gap = float(np.max(np.abs(rows[RP_SIM_STRIDE] - rows[1])))
+    log(f"radical pair, Simulator: stride-{RP_SIM_STRIDE} rows within "
+        f"{gap:.2e} of stride 1 (tol {ROW_TOL})")
+    require(rows[1].shape == rows[RP_SIM_STRIDE].shape
+            and rows[1].shape[0] == RP_SIM_STEPS,
+            f"radical pair Simulator: rows {rows[1].shape}, "
+            f"{rows[RP_SIM_STRIDE].shape}")
+    require(np.all(np.isfinite(rows[1])), "radical pair Simulator: rows "
+            "not finite")
+    require(gap <= ROW_TOL, f"radical pair Simulator: stride-"
+            f"{RP_SIM_STRIDE} rows {gap:.2e} from stride 1")
+    require(runs[RP_SIM_STRIDE][:2] == (RP_SIM_STRIDE - 1, 2),
+            f"radical pair Simulator: graph_steps, eager_steps "
+            f"{runs[RP_SIM_STRIDE][:2]}")
+    n, routes = runs[RP_SIM_STRIDE][2:]
+    return {**{name: (v, None) for name, v in n.items() if v},
+            "mgs_qr_routes": routes}
+
+
+def phase_anchor() -> dict:
+    """bench_chi.py's χ=2048 anchor (6+6 nuclei, Krylov buffer 8) at
+    "throughput": a host step and the capture; from the state after them
+    one replayed step against one host-driven step (Krylov statistics and
+    launches equal, the replay's counted on the device); then from that
+    state again ``ANCHOR_STEPS`` graph replays, timed: its gold
+    populations, the launch gates, the peak memory; one more replayed step
+    under the profiler (busy share)."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_qr as CQ
+
+    tag = f"χ={CHI_ANCHOR} anchor [throughput]"
+    t0 = time.perf_counter()
+    engine, ele = build_rp_engine("cuda", "throughput", chi=CHI_ANCHOR,
+                                  nuc=ANCHOR_NUC, krylov=ANCHOR_KRYLOV)
+    engine.right_canonicalize()
+    torch.cuda.synchronize()
+    log(f"{tag}: {engine.nsite} sites, built and canonicalised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    engine.krylov_stats()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.propagate_steps(RP_DT, 1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (prog,) = engine._programs.values()
+    # the peak of the host step, the captures and (below) the timed
+    # replays: not of the witness, whose host step runs beside the pool
+    peak_first = torch.cuda.max_memory_allocated()
+    # one replayed step against the same step driven from the host
+    restore = program_snapshot(engine)
+    restore()
+    engine.propagate_steps(RP_DT, 1)
+    stats_g, n_g = engine.krylov_stats(), rp_launches()
+    restore()
+    engine.propagate(RP_DT)
+    stats_h, n_h = engine.krylov_stats(), rp_launches()
+    log(f"{tag}: one step replayed, Krylov {stats_g}, launches {n_g}; "
+        f"host-driven, Krylov {stats_h}, launches {n_h}")
+    require(stats_g == stats_h, f"{tag}: replayed Krylov statistics "
+            f"{stats_g} != host-driven {stats_h}")
+    require(n_g == n_h, f"{tag}: replayed launches (device-counted) {n_g} "
+            f"!= host-driven {n_h}")
+    restore()
+    del restore
+    engine.krylov_stats()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.propagate_steps(RP_DT, ANCHOR_STEPS)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / ANCHOR_STEPS
+    peak = max(peak_first, torch.cuda.max_memory_allocated()) / 1e9
+    stats, n = engine.krylov_stats(), rp_launches()
+    routes = dict(CQ.mgs_qr.route_launches)
+    log(f"{tag}: host step and captures {first_s:.3f} s (capture and "
+        f"instantiate {prog.capture_s:.3f} s); {ANCHOR_STEPS} replays "
+        f"{step_s:.4f} s/step; avg Krylov {stats[0]:.3f} over {stats[1]} "
+        f"calls, cap hits {stats[2]}, relaxed matvecs {stats[3]}; launches "
+        f"{n}; graph_steps {engine.graph_steps}; peak device memory "
+        f"{peak:.2f} GB")
+    require((engine.graph_steps, engine.eager_steps)
+            == (ANCHOR_STEPS + 1, 2),
+            f"{tag}: graph_steps {engine.graph_steps}, eager_steps "
+            f"{engine.eager_steps}")
+    rp_gold(engine, ele, ANCHOR_KEY, tag)
+    rp_launch_gates(engine, tag, ANCHOR_STEPS, stats, n)
+    busy = profile_run(lambda: engine.propagate_steps(RP_DT, 1))
+    log(f"{tag}: a replayed step keeps the device {100 * busy:.1f} % busy")
+    return {**{name: (v, None) for name, v in n.items() if v},
             "mgs_qr_routes": routes}
 
 
@@ -2041,6 +2508,10 @@ KERNELS = [
      "pytdscf_tpu/mps/pallas_renorm.py:223"),
     ("site_step", "pytdscf_torch/csrc/site_step.cu",
      "pytdscf_tpu/mps/pallas_site.py:342"),
+    # no pl.pallas_call: the control of the JAX package's Arnoldi
+    # while_loop (the Lanczos one is at :228)
+    ("krylov_ctl", "pytdscf_torch/csrc/krylov_ctl.cu",
+     "pytdscf_tpu/mps/integrator.py:322"),
 ]
 
 
@@ -2075,6 +2546,10 @@ def main() -> int:
     for preset in ("balanced", "throughput"):
         torch.cuda.empty_cache()
         paths.append(phase_radical_pair(times, preset))
+    torch.cuda.empty_cache()
+    paths.append(phase_rp_simulator())
+    torch.cuda.empty_cache()
+    paths.append(phase_anchor())
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -2106,8 +2581,8 @@ def main() -> int:
         kernels[0][key] = times["lanczos_expm"][key]
     # the MGS cases: each timed shape with its route's main-path launches
     kernels[[k["name"] for k in kernels].index("mgs_qr")]["cases"] = [
-        {**case, "launches": sum(path["mgs_qr_routes"][case["route"]]
-                                 for path in paths)}
+        {**case, "launches": sum(path.get("mgs_qr_routes", {}).get(
+            case["route"], 0) for path in paths)}
         for case in times["mgs_qr"]["cases"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

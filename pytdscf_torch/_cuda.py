@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 #: C signatures: (argtypes) of each entry point; all return an int error code
 SIGNATURES = {
     # device, m, q, r_out, qwork (or NULL), N, r, stream
@@ -51,19 +52,22 @@ SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
         _P,
     ],
-    # device, psi, L, W, R, psip, t1, t2, out, B, K, X, Rd, d, wl, wr, stream
+    # device, psi, L, W, R, psip, t1, t2, out, B, K, X, Rd, din, dout, wl,
+    # wr, count (or NULL), stream
     "pytdscf_heff_tc_c64": [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P,
     ],
-    # device, sig, L, R, sigp, t1, out, B, K, X, Rd, w, stream
+    # device, sig, L, R, sigp, t1, out, B, K, X, Rd, w, count (or NULL),
+    # stream
     "pytdscf_keff_tc_c64": [
-        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
     ],
     # device, psi, L, W (or NULL), R, psip, t1 (or NULL), t2, out, B, K, X,
-    # Rd, din, dout, wl, wr, stream
+    # Rd, din, dout, wl, wr, count (or NULL), stream
     "pytdscf_chain3_c64": [
         _I, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # device, H, Rt, psi, next, logs, site_out, psi_next, blocks, log_new,
     # status, scratch, nc, M, r, P2, kmaxH, kmaxK, scale_re, scale_im,
@@ -77,6 +81,15 @@ SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P,
     ],
+    # device, T, G (or NULL), c, flags, status, count (or NULL), k, kmax,
+    # scale_re, scale_im, thresh, exact, relax_after, stream
+    "pytdscf_krylov_ctl_c64": [
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _D, _I, _I, _P,
+    ],
+    # device, parent stream, pred, child stream, relaxed
+    "pytdscf_if_begin": [_I, _P, _P, _P, _I],
+    # device, child stream
+    "pytdscf_if_end": [_I, _P],
 }
 
 
@@ -153,6 +166,24 @@ def load() -> ctypes.CDLL:
     lib.pytdscf_error_string.argtypes = [ctypes.c_int]
     lib.pytdscf_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def replay_count(fn, device):
+    """The address of ``fn``'s launch count on ``device`` (an int32 on the
+    card, in ``fn.replayed``) while the current stream records a CUDA
+    graph, else None.  A launch given the address adds one to it on the
+    device, so the replays of a graph count the launches they ran, those
+    inside IF nodes included (``step_graph.StepProgram.settle``)."""
+    import torch
+
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    count = fn.replayed.get(device.index)
+    if count is None:
+        raise RuntimeError(
+            "a kernel was launched in a capture with no device launch count "
+            "on its device (step_graph.StepProgram makes them first)")
+    return count.data_ptr()
 
 
 def check(code: int, what: str) -> None:

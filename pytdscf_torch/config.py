@@ -45,21 +45,27 @@ class Config:
     #: "highest" = float32 with TF32 off; "high" = bf16x3 (every operand
     #: split into bf16 hi and lo, three bf16 products per real product,
     #: float32 sums, about 16 mantissa bits; on CUDA the
-    #: ``cuda_renorm.heff_hi``/``keff_hi`` kernel).  The JAX package's
-    #: one-pass "default" is not ported (ROADMAP A6).
-    matvec_precision: Literal["highest", "high"] = "highest"
+    #: ``cuda_renorm.heff_hi``/``keff_hi`` kernel); "default" = one bf16
+    #: pass per real product with float32 sums (about 8 mantissa bits,
+    #: ~4e-3 relative; the ``cuda_matvec`` kernels of relaxed Krylov), the
+    #: JAX package's ``Precision.DEFAULT``, for profiling: no preset uses
+    #: it.  A Lanczos site below "highest" runs ``integrator.krylov_expm``
+    #: over these matvecs, not the Lanczos kernel.
+    matvec_precision: Literal["highest", "high", "default"] = "highest"
     #: Precision of the in-sweep environment transfers, as
-    #: ``matvec_precision`` (on CUDA "high" runs ``cuda_renorm.renorm_*_hi``).
-    #: The env stacks built between sweeps and ``expectation`` stay
-    #: "highest", as in the JAX package.
-    env_precision: Literal["highest", "high"] = "highest"
+    #: ``matvec_precision`` (on CUDA "high" runs ``cuda_renorm.renorm_*_hi``,
+    #: "default" ``cuda_renorm.renorm_*_lo``).  The env stacks built
+    #: between sweeps and ``expectation`` stay "highest", as in the JAX
+    #: package.
+    env_precision: Literal["highest", "high", "default"] = "highest"
 
     #: Relaxed (inexact) Krylov: matvec iterations ``>= relax_after`` run
     #: the single-bf16-pass matvec (bf16 operands and chain intermediates,
     #: float32 accumulation; on CUDA the ``cuda_matvec`` kernels).  Their
     #: errors enter ``exp(T)e₀`` weighted by the late expansion
     #: coefficients (van den Eshof & Hochbruck relaxation), so the result
-    #: stays within the integrator threshold.  Arnoldi only in the port.
+    #: stays within the integrator threshold.  With Lanczos the sites run
+    #: ``integrator.krylov_expm`` over the einsums, not the Lanczos kernel.
     krylov_relaxed: bool = False
     #: First relaxed Krylov iteration: iterations ``< relax_after`` run the
     #: exact matvec.  2 is the conservative default; 1 locks in only the
@@ -95,13 +101,9 @@ class Config:
     def __post_init__(self):
         for name in ("matvec_precision", "env_precision"):
             value = getattr(self, name)
-            if value == "default":
-                raise NotImplementedError(
-                    f"{name}='default': the one-bf16-pass product is not "
-                    "ported yet (ROADMAP A6)"
-                )
-            if value not in ("highest", "high"):
-                raise ValueError(f"{name}={value!r}: highest | high")
+            if value not in ("highest", "high", "default"):
+                raise ValueError(
+                    f"{name}={value!r}: highest | high | default")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -311,8 +311,12 @@ cudaError_t launch(const Operand& A, const Operand& B, int D, Epi epi,
 template <int kPasses>
 __global__ void planes_kernel(const float2* __restrict__ x,
                               __nv_bfloat16* __restrict__ out, int rows,
-                              int rows_p, int cols, int cols_p) {
+                              int rows_p, int cols, int cols_p,
+                              int* __restrict__ count) {
   const size_t n = (size_t)rows_p * cols_p;
+  // one per launch of the chain this kernel opens (a launch count kept on
+  // the device, so a CUDA graph's replays count what they ran)
+  if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *count += 1;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
     const int r = (int)(e / cols_p), c = (int)(e % cols_p);
@@ -331,12 +335,12 @@ __global__ void planes_kernel(const float2* __restrict__ x,
 
 template <int kPasses>
 cudaError_t launch_planes(const void* x, __nv_bfloat16* out, int rows,
-                          int rows_p, int cols, int cols_p,
+                          int rows_p, int cols, int cols_p, int* count,
                           cudaStream_t stream) {
   const size_t blocks = ((size_t)rows_p * cols_p + 255) / 256;
   planes_kernel<kPasses><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
                            stream>>>(static_cast<const float2*>(x), out,
-                                     rows, rows_p, cols, cols_p);
+                                     rows, rows_p, cols, cols_p, count);
   return cudaGetLastError();
 }
 

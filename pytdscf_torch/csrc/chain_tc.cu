@@ -164,14 +164,16 @@ struct Tiles<3> {
 template <int kPasses>
 int chain(const void* psi, const void* L, const void* W, const void* R,
           void* psip, void* t1, void* t2, void* out, int B, int K, int X,
-          int Rd, int din, int dout, int wl, int wr, cudaStream_t st) {
+          int Rd, int din, int dout, int wl, int wr, int* count,
+          cudaStream_t st) {
   using T = __nv_bfloat16;
   const int Kp = pad8(K), Rp = pad8(Rd), dwp = pad8(din * wr);
   T* pp = static_cast<T*>(psip);
   T* t1p = static_cast<T*>(t1);
   T* t2p = static_cast<T*>(t2);
   RETURN_IF_ERROR(
-      cgemm::launch_planes<kPasses>(psi, pp, K * din, K * din, Rd, Rp, st));
+      cgemm::launch_planes<kPasses>(psi, pp, K * din, K * din, Rd, Rp, count,
+                                    st));
 
   // GEMM 1: T1 (M = K din, N = X wr, depth Rp)
   const Operand Pop{pp, (long)K * din * Rp, Rp, K * din};
@@ -202,13 +204,14 @@ int chain(const void* psi, const void* L, const void* W, const void* R,
 
 // K_eff at bf16x3: out (B, X) = sum L[b,a,k] R[x,a,r] sig[k,r] (w = wl = wr)
 int keff3(const void* sig, const void* L, const void* R, void* sigp,
-          void* t2, void* out, int B, int K, int X, int Rd, int w,
+          void* t2, void* out, int B, int K, int X, int Rd, int w, int* count,
           cudaStream_t st) {
   using T = __nv_bfloat16;
   const int Kp = pad8(K), Rp = pad8(Rd);
   T* sp = static_cast<T*>(sigp);
   T* t2p = static_cast<T*>(t2);
-  RETURN_IF_ERROR(cgemm::launch_planes<3>(sig, sp, K, Kp, Rd, Rp, st));
+  RETURN_IF_ERROR(
+      cgemm::launch_planes<3>(sig, sp, K, Kp, Rd, Rp, count, st));
 
   // GEMM 1, transposed: T2[(x,a), k] = sum_r R[(x,a), r] sig[k, r]
   const long xw = (long)X * w;
@@ -235,22 +238,27 @@ bool aligned(std::initializer_list<const void*> buffers) {
 
 }  // namespace
 
-// Relaxed H_eff (one bf16 pass): out (B, d, X) = chain(psi (K, d, Rd)) over
-// L (2, B, wl, Kp), W (2, wl, d, ceil8(d wr)), R (2, X, wr, Rp); scratch
-// psip (2, K d, Rp), t1 (2, X, K, ceil8(d wr)), t2 (2, d, X, wl, Kp), their
-// padding zero.  cudaErrorInvalidValue if a size is below 1 or a bf16
-// buffer is not 16-byte aligned.
+// One bf16 pass: out (B, dout, X) = chain(psi (K, din, Rd)) over
+// L (2, B, wl, Kp), W (2, wl, dout, ceil8(din wr)), R (2, X, wr, Rp);
+// scratch psip (2, K din, Rp), t1 (2, X, K, ceil8(din wr)), t2 (2, dout, X,
+// wl, Kp), their padding zero: the relaxed H_eff matvec (din = dout = d) and
+// the one-pass environment transfer (the roles of cuda_renorm.py).  count
+// (or null): a device int32 that the launch adds one to.
+// cudaErrorInvalidValue if a size is below 1 or a bf16 buffer is not
+// 16-byte aligned.
 extern "C" int pytdscf_heff_tc_c64(int device, const void* psi, const void* L,
                                    const void* W, const void* R, void* psip,
                                    void* t1, void* t2, void* out, int B,
-                                   int K, int X, int Rd, int d, int wl,
-                                   int wr, void* stream) {
+                                   int K, int X, int Rd, int din, int dout,
+                                   int wl, int wr, void* count,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B < 1 || K < 1 || X < 1 || Rd < 1 || d < 1 || wl < 1 || wr < 1 ||
-      !aligned({L, W, R, psip, t1, t2}))
+  if (B < 1 || K < 1 || X < 1 || Rd < 1 || din < 1 || dout < 1 || wl < 1 ||
+      wr < 1 || !aligned({L, W, R, psip, t1, t2}))
     return (int)cudaErrorInvalidValue;
-  return chain<1>(psi, L, W, R, psip, t1, t2, out, B, K, X, Rd, d, d, wl, wr,
+  return chain<1>(psi, L, W, R, psip, t1, t2, out, B, K, X, Rd, din, dout, wl,
+                  wr, static_cast<int*>(count),
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -258,23 +266,25 @@ extern "C" int pytdscf_heff_tc_c64(int device, const void* psi, const void* L,
 // four-plane L, W, R (layouts above), or with W == NULL (and t1 unused)
 // the K_eff form, din = dout = 1 and wl = wr.  cudaErrorInvalidValue if a
 // size is below 1, the K_eff form gets other widths, or a bf16 buffer is
-// not 16-byte aligned.
+// not 16-byte aligned.  count (or null): a device int32 that the launch adds
+// one to.
 extern "C" int pytdscf_chain3_c64(int device, const void* psi, const void* L,
                                   const void* W, const void* R, void* psip,
                                   void* t1, void* t2, void* out, int B, int K,
                                   int X, int Rd, int din, int dout, int wl,
-                                  int wr, void* stream) {
+                                  int wr, void* count, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B < 1 || K < 1 || X < 1 || Rd < 1 || din < 1 || dout < 1 || wl < 1 ||
       wr < 1 || !aligned({L, R, psip, t2}))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* n = static_cast<int*>(count);
   if (W == nullptr) {
     if (din != 1 || dout != 1 || wl != wr) return (int)cudaErrorInvalidValue;
-    return keff3(psi, L, R, psip, t2, out, B, K, X, Rd, wr, st);
+    return keff3(psi, L, R, psip, t2, out, B, K, X, Rd, wr, n, st);
   }
   if (!aligned({W, t1})) return (int)cudaErrorInvalidValue;
   return chain<3>(psi, L, W, R, psip, t1, t2, out, B, K, X, Rd, din, dout, wl,
-                  wr, st);
+                  wr, n, st);
 }

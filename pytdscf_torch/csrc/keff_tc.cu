@@ -47,12 +47,13 @@
 
 // out (B, X) = K_eff chain of sig (K, Rd) over L (2, B, w, Kp) and
 // R (2, X, w, Rp) (layouts above); sigp and t1 are scratch of 2 Kp Rp and
-// 2 X w Kp bf16.  cudaErrorInvalidValue if a size is below 1 or a bf16
-// buffer is not 16-byte aligned.
+// 2 X w Kp bf16; count (or null) a device int32 that the launch adds one
+// to.  cudaErrorInvalidValue if a size is below 1 or a bf16 buffer is not
+// 16-byte aligned.
 extern "C" int pytdscf_keff_tc_c64(int device, const void* sig, const void* L,
                                    const void* R, void* sigp, void* t1,
                                    void* out, int B, int K, int X, int Rd,
-                                   int w, void* stream) {
+                                   int w, void* count, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B < 1 || K < 1 || X < 1 || Rd < 1 || w < 1 || !cgemm::aligned16(L) ||
@@ -63,7 +64,8 @@ extern "C" int pytdscf_keff_tc_c64(int device, const void* sig, const void* L,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* sp = static_cast<__nv_bfloat16*>(sigp);
   __nv_bfloat16* tp = static_cast<__nv_bfloat16*>(t1);
-  err = cgemm::launch_planes<1>(sig, sp, K, Kp, Rd, Rp, st);
+  err = cgemm::launch_planes<1>(sig, sp, K, Kp, Rd, Rp,
+                                static_cast<int*>(count), st);
   if (err != cudaSuccess) return (int)err;
 
   // stage 1: T1t (X w, Kp) = R (X w, Rp) . sigp (Kp, Rp)^T

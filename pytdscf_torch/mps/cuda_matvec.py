@@ -37,13 +37,16 @@ from pytdscf_torch.mps import kernels as K
 class HeffOps(NamedTuple):
     """The H_eff kernel's operands: bf16 planes (re, im) first, the depth
     axes zero-padded to :func:`pad8` of their lengths (``k``, ``r`` and
-    j·c = d·w_r for W, whose rows are (a, i))."""
+    j·c = d_in·w_r for W, whose rows are (a, i)); ``j`` is W's ket width
+    d_in (its bra width, W's third axis, may differ: the one-pass
+    environment transfer, ``cuda_renorm.renorm_left_lo``)."""
 
     L: torch.Tensor  # (2, b, a, pad8(k)) bf16
     W: torch.Tensor  # (2, a, i, pad8(j·c)) bf16
     R: torch.Tensor  # (2, x, c, pad8(r)) bf16
     k: int
     r: int
+    j: int
 
 
 class KeffOps(NamedTuple):
@@ -76,11 +79,11 @@ def bf16_planes(x: torch.Tensor, passes: int = 1) -> torch.Tensor:
 
 
 def heff_operands(L, W, R) -> HeffOps:
-    """bf16 operands of the H_eff matvec (:class:`HeffOps`), built once per
-    site."""
-    wl, d, _, wr = W.shape
-    return HeffOps(bf16_planes(L), bf16_planes(W.reshape(wl, d, d * wr)),
-                   bf16_planes(R), L.shape[-1], R.shape[-1])
+    """bf16 operands of the H_eff matvec (:class:`HeffOps`), L (b, a, k),
+    W (a, i, j, c) and R (x, c, r), built once per site."""
+    wl, dout, din, wr = W.shape
+    return HeffOps(bf16_planes(L), bf16_planes(W.reshape(wl, dout, din * wr)),
+                   bf16_planes(R), L.shape[-1], R.shape[-1], din)
 
 
 def keff_operands(L, R) -> KeffOps:
@@ -96,9 +99,9 @@ def plain_planes(ops: HeffOps | KeffOps) -> tuple:
     L, R = ops.L[..., :ops.k], ops.R[..., :ops.r]
     if isinstance(ops, KeffOps):
         return (L[0], L[1]), (R[0], R[1])
-    _, wl, d, _ = ops.W.shape
+    _, wl, dout, _ = ops.W.shape
     wr = ops.R.shape[2]
-    W = ops.W[..., :d * wr].reshape(2, wl, d, d, wr)
+    W = ops.W[..., :ops.j * wr].reshape(2, wl, dout, ops.j, wr)
     return (L[0], L[1]), (W[0], W[1]), (R[0], R[1])
 
 
@@ -142,21 +145,30 @@ def heff_lo(ops: HeffOps, psi: torch.Tensor) -> torch.Tensor:
     launches (one per call: its planes kernel and three GEMMs),
     ``heff_lo.plain_calls`` the CPU calls.
     """
+    return chain_lo(heff_lo, ops, psi)
+
+
+def chain_lo(counter, ops: HeffOps, psi: torch.Tensor) -> torch.Tensor:
+    """The one-pass chain σ[b, i, x] = Σ L[b,a,k]·W[a,i,j,c]·R[x,c,r]·
+    ψ[k,j,r] (:func:`heff_lo`'s; ``cuda_renorm`` runs the one-pass
+    environment transfer through it), counted on ``counter``."""
     if psi.ndim != 3 or ops.L.ndim != 4 or ops.W.ndim != 4 or ops.R.ndim != 4:
         raise ValueError("heff_lo takes ψ (k, j, r) and operands from "
                          "heff_operands")
     k, d, r = psi.shape
     _, B, wl, kp = ops.L.shape
     _, X, wr, rp = ops.R.shape
-    if ((k, r) != (ops.k, ops.r) or (kp, rp) != (pad8(k), pad8(r))
-            or tuple(ops.W.shape) != (2, wl, d, pad8(d * wr))):
+    dout = ops.W.shape[2]
+    if ((k, r, d) != (ops.k, ops.r, ops.j)
+            or (kp, rp) != (pad8(k), pad8(r))
+            or tuple(ops.W.shape) != (2, wl, dout, pad8(d * wr))):
         raise ValueError(
             f"operand shapes L {tuple(ops.L.shape)}, W {tuple(ops.W.shape)}, "
-            f"R {tuple(ops.R.shape)} (k={ops.k}, r={ops.r}) do not fit ψ "
-            f"{tuple(psi.shape)}"
+            f"R {tuple(ops.R.shape)} (k={ops.k}, r={ops.r}, j={ops.j}) do "
+            f"not fit ψ {tuple(psi.shape)}"
         )
     if psi.device.type == "cpu":
-        heff_lo.plain_calls += 1
+        counter.plain_calls += 1
         return K.heff_apply_lo(*plain_planes(ops), psi)
     if psi.device.type != "cuda":
         raise ValueError(f"heff_lo: no kernel for device {psi.device}")
@@ -164,16 +176,17 @@ def heff_lo(ops: HeffOps, psi: torch.Tensor) -> torch.Tensor:
     check_operand("ψ", psi, torch.complex64, dev)
     for name in ("L", "W", "R"):
         check_operand(name, getattr(ops, name), torch.bfloat16, dev)
-    psip, t1, t2 = chain_scratch(2, k, X, r, d, d, wl, wr, dev)
-    out = torch.empty((B, d, X), dtype=torch.complex64, device=dev)
+    psip, t1, t2 = chain_scratch(2, k, X, r, d, dout, wl, wr, dev)
+    out = torch.empty((B, dout, X), dtype=torch.complex64, device=dev)
     code = _cuda.load().pytdscf_heff_tc_c64(
         dev.index, psi.data_ptr(), ops.L.data_ptr(), ops.W.data_ptr(),
         ops.R.data_ptr(), psip.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-        out.data_ptr(), B, k, X, r, d, wl, wr,
+        out.data_ptr(), B, k, X, r, d, dout, wl, wr,
+        _cuda.replay_count(counter, dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(code, "heff_lo")
-    heff_lo.launches += 1
+    counter.launches += 1
     return out
 
 
@@ -213,6 +226,7 @@ def keff_lo(ops: KeffOps, sig: torch.Tensor) -> torch.Tensor:
     code = _cuda.load().pytdscf_keff_tc_c64(
         dev.index, sig.data_ptr(), ops.L.data_ptr(), ops.R.data_ptr(),
         sigp.data_ptr(), t1.data_ptr(), out.data_ptr(), B, k, X, r, w,
+        _cuda.replay_count(keff_lo, dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(code, "keff_lo")
@@ -222,5 +236,7 @@ def keff_lo(ops: KeffOps, sig: torch.Tensor) -> torch.Tensor:
 
 heff_lo.launches = 0
 heff_lo.plain_calls = 0
+heff_lo.replayed = {}
 keff_lo.launches = 0
 keff_lo.plain_calls = 0
+keff_lo.replayed = {}

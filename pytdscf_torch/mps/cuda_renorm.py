@@ -25,6 +25,15 @@ Four mappings run it:
   operands are built once per Krylov call (:func:`heff_operands`,
   :func:`keff_operands`); launches counted by :data:`matvec_hi`.
 
+The one-pass form of the environment transfer (``env_precision=
+"default"``, :func:`renorm_left_lo` / :func:`renorm_right_lo`, launches
+counted by :data:`renorm_lo`) runs the same chain in the same roles
+through ``cuda_matvec.chain_lo``: ``chain_tc.cu`` in its one-pass mode,
+the rounding of the relaxed H_eff matvec (ψ, L, W, R and the
+intermediates T1 and T2 rounded to bf16, float32 sums), whose plain
+version ``kernels.heff_apply_lo`` serves the CPU
+(``kernels.renorm_block_left_lo`` / ``_right_lo``).
+
 The operands L, W and R are bf16 planes (re_hi, im_hi, re_lo, im_lo)
 first, each depth axis zero-padded to a multiple of 8 (:class:`HiOps`);
 ψ stays complex and is split by the kernel.  :func:`plain_hilo` gives the
@@ -43,9 +52,12 @@ from pytdscf_torch import _cuda
 from pytdscf_torch.mps import cuda_matvec as CM
 from pytdscf_torch.mps import kernels as K
 
-#: Launch counters: ``launches`` on the card, ``plain_calls`` on the CPU.
-renorm_hi = SimpleNamespace(launches=0, plain_calls=0)
-matvec_hi = SimpleNamespace(launches=0, plain_calls=0)
+#: Launch counters: ``launches`` on the card, ``plain_calls`` on the CPU,
+#: ``replayed`` the device counts of launches recorded into a CUDA graph
+#: (``_cuda.replay_count``).
+renorm_hi = SimpleNamespace(launches=0, plain_calls=0, replayed={})
+renorm_lo = SimpleNamespace(launches=0, plain_calls=0, replayed={})
+matvec_hi = SimpleNamespace(launches=0, plain_calls=0, replayed={})
 
 
 class HiOps(NamedTuple):
@@ -145,6 +157,7 @@ def _chain(counter, psi: torch.Tensor, ops: HiOps) -> torch.Tensor:
         None if ops.W is None else ops.W.data_ptr(), ops.R.data_ptr(),
         psip.data_ptr(), None if t1 is None else t1.data_ptr(),
         t2.data_ptr(), out.data_ptr(), B, k, X, r, din, dout, wl, wr,
+        _cuda.replay_count(counter, dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(code, "chain_tc")
@@ -178,3 +191,19 @@ def heff_hi(ops: HiOps, psi: torch.Tensor) -> torch.Tensor:
 def keff_hi(ops: HiOps, sig: torch.Tensor) -> torch.Tensor:
     """σ'[b,x] of the "high" K_eff matvec on σ (k, r)."""
     return _chain(matvec_hi, sig.unsqueeze(1), ops)[:, 0, :].to(sig.dtype)
+
+
+def renorm_left_lo(L, a_bra, W, a_ket) -> torch.Tensor:
+    """:func:`renorm_left_hi`'s transfer at one bf16 pass
+    (``kernels.renorm_block_left_lo`` on the CPU)."""
+    ops = CM.heff_operands(torch.conj_physical(a_bra).permute(2, 1, 0),
+                           W.permute(1, 3, 0, 2), a_ket.permute(2, 1, 0))
+    return CM.chain_lo(renorm_lo, ops, L.contiguous()).to(L.dtype)
+
+
+def renorm_right_lo(R, b_bra, W, b_ket) -> torch.Tensor:
+    """:func:`renorm_right_hi`'s transfer at one bf16 pass
+    (``kernels.renorm_block_right_lo`` on the CPU)."""
+    ops = CM.heff_operands(torch.conj_physical(b_bra), W.permute(1, 0, 3, 2),
+                           b_ket)
+    return CM.chain_lo(renorm_lo, ops, R.contiguous()).to(R.dtype)

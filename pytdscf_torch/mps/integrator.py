@@ -1,36 +1,43 @@
 """Krylov propagators: the short-iterative Lanczos and Arnoldi of the JAX
 package.
 
-The counterpart of the JAX package's ``mps/integrator.py:krylov_expm``:
+The counterpart of the JAX package's ``mps/integrator.py:krylov_expm``.
+Both run as one program (:func:`_program`) unrolled to ``k_max``
+iterations over preallocated buffers: the Krylov vectors V (k_max+1, n),
+the reduced matrix T, the coefficients c and the control flags.
 
-* ``_lanczos_loop`` — the same recurrence, stopping rule and norm handling,
-  with ``exp(scale·T)e₀`` from the real-symmetric eigendecomposition of T.
-  It is the CPU oracle of ``cuda_lanczos.lanczos_expm``, which the engine
-  runs for Lanczos.
-* ``_arnoldi_loop`` — classical Gram–Schmidt against the live rows of a
-  preallocated (k_max+1, n) buffer, ``exp(scale·H)e₀`` of the Hessenberg
-  block by order-12 Taylor with scaling and squaring, convergence tested
-  in coefficient space.  The engine runs it for non-Hermitian H_eff (the
-  Liouville MPDO); its matvecs are the exact einsums and, with
-  ``matvec_lo`` (relaxed Krylov), the ``cuda_matvec`` kernels.
+* Arnoldi (:func:`_arnoldi_step`): classical Gram–Schmidt against the live
+  rows of V; T is the Hessenberg matrix; convergence is tested in
+  coefficient space (V is orthonormal).  The engine runs it for
+  non-Hermitian H_eff (the Liouville MPDO).
+* Lanczos (:func:`_lanczos_step`): the reference's oblique recurrence
+  (α_k = ⟨v₀|H·v_k⟩); T is tridiagonal; the basis is not orthogonal, so the
+  convergence test ‖ψ_k − ψ_{k−1}‖ runs through its Gram matrix.  The
+  engine runs it for a Hermitian site that the Lanczos kernel does not
+  take (too large, relaxed, or not "highest" precision).
 
-The loops run on the host.  Each Arnoldi iteration reads three scalars
-back, each a device-to-host sync: the breakdown test ``b < EPS``, the
-Taylor scaling norm ‖scale·H‖₁ in ``_expm_taylor_small`` and the
-convergence error (Lanczos reads two: breakdown and convergence).  At large
-bond dimension an iteration is milliseconds of device work, so these reads
-cost little, but each one leaves the device idle until the host has queued
-the next work.
+Each iteration ends with the control step ``cuda_krylov.krylov_ctl`` (a
+kernel on the card): ``exp(scale·T)[:, 0]`` by order-12 Taylor with scaling
+and squaring, the breakdown, convergence and cap tests, and the flags and
+status ``[k_used, bad, relaxed matvecs]``, all on the device.  Driven from
+the host, the program reads one flag per iteration (whether the next one
+runs); inside a captured step the iterations after the first are IF nodes
+of the CUDA graph (``cuda_krylov.GraphBranches``) and nothing is read
+back.  Either way an iteration that does not run launches nothing, and ψ
+is formed once, from the iterations that ran.  Matvecs take the iteration
+index, so that iterations ``>= relax_after`` can run the relaxed matvec.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable
 
 import torch
 
-EPS = 1.0e-14
+from pytdscf_torch.mps import cuda_krylov as CK
+from pytdscf_torch.mps.cuda_krylov import EPS
+# the plain Taylor exponential, under the name the CPU tests use
+from pytdscf_torch.mps.cuda_krylov import expm_taylor_small as _expm_taylor_small  # noqa: F401
 
 
 def krylov_expm(
@@ -44,12 +51,15 @@ def krylov_expm(
     return_iterations: bool = False,
     matvec_lo: Callable[[torch.Tensor], torch.Tensor] | None = None,
     relax_after: int = 2,
+    return_status: bool = False,
 ):
     """Approximate ``exp(scale·H)·v_init`` in a Krylov subspace.
 
-    ``v_init`` is a flat vector.  With ``return_iterations`` also returns
-    the Krylov dimension used and a flag that is True when the loop hit
-    ``max_dim`` without meeting ``thresh`` and without a breakdown.
+    ``v_init`` is a flat vector.  With ``return_status`` also returns the
+    device status ``[k_used, bad, relaxed matvecs]`` (int32), ``bad`` set
+    when the loop hit ``max_dim`` without meeting ``thresh`` and without a
+    breakdown; with ``return_iterations`` ``k_used`` and ``bad`` as Python
+    values (a host read).
 
     ``matvec_lo`` enables relaxed (inexact) Krylov: iterations
     ``k >= relax_after`` apply the cheaper low-precision matvec.  The error
@@ -61,128 +71,119 @@ def krylov_expm(
     n = v_init.shape[0]
     k_max = min(max_dim, n)
     beta0 = torch.linalg.vector_norm(v_init)
+
     def mv(k, v):
         if matvec_lo is not None and k >= relax_after:
             return matvec_lo(v)
         return matvec(v)
 
-    loop = _arnoldi_loop if arnoldi else _lanczos_loop
-    psi_next, k_used, bad = loop(mv, v_init / beta0, scale, thresh, k_max)
-    if k_max >= n:
-        # the Krylov space spanned the whole vector space: exact, never capped
-        bad = False
+    psi_next, status = _program(
+        mv, v_init / beta0, scale, thresh, k_max, arnoldi,
+        # the Krylov space spans the whole vector space: exact, never capped
+        exact=k_max >= n,
+        relax_after=relax_after if matvec_lo is not None else None,
+    )
     if conserve_norm:
         out = psi_next / torch.linalg.vector_norm(psi_next)
     else:
         out = psi_next * beta0
+    if return_status:
+        return out, status
     if return_iterations:
-        return out, k_used, bad
+        k_used, bad, _ = status.tolist()
+        return out, k_used, bool(bad)
     return out
 
 
-def _lanczos_loop(matvec, v0, scale, thresh, k_max):
-    """SIL with the reference's recurrence.
+def _program(mv, v0, scale, thresh, k_max, arnoldi, *, exact, relax_after):
+    """The unrolled Krylov loop: ``(ψ_next, status)``.
+
+    Iteration 0 always runs.  Iteration k ≥ 1 runs where the control step
+    of iteration k−1 left ``flags[0]`` set: read from the host, or, inside
+    a step capture, as an IF node.  ψ = c·V over the iterations that ran:
+    formed at once from the host, or as the IF node ``flags[1+j]`` of the
+    gather over the first j+1 rows."""
+    n = v0.shape[0]
+    dtype, dev = v0.dtype, v0.device
+    V = torch.zeros((k_max + 1, n), dtype=dtype, device=dev)
+    V[0] = v0
+    T = torch.zeros((k_max + 1, k_max + 1), dtype=dtype, device=dev)
+    c = torch.zeros(k_max, dtype=dtype, device=dev)
+    flags = torch.zeros(k_max + 1, dtype=torch.bool, device=dev)
+    flags[0].fill_(True)  # a kernel: a capture copies nothing from the host
+    status = torch.zeros(3, dtype=torch.int32, device=dev)
+    ctl = dict(scale=scale, thresh=thresh, exact=exact,
+               relax_after=relax_after)
+    if arnoldi:
+        step = _arnoldi_step
+        state = (V, T, c, flags, status)
+    else:
+        step = _lanczos_step
+        beta = torch.zeros(k_max, dtype=v0.real.dtype, device=dev)
+        state = (V, T, c, flags, status, torch.zeros_like(T), beta)
+    graph = CK.active(dev)
+    if graph is None:
+        k_used = k_max
+        for k in range(k_max):
+            if k > 0 and not bool(flags[0]):  # the iteration's one host read
+                k_used = k
+                break
+            step(k, mv, state, ctl)
+        return c[:k_used] @ V[:k_used], status
+    step(0, mv, state, ctl)
+    for k in range(1, k_max):
+        with graph.branch(flags[0:1]):
+            step(k, mv, state, ctl)
+    psi = torch.zeros(n, dtype=dtype, device=dev)
+    for j in range(k_max):
+        with graph.branch(flags[1 + j:2 + j]):
+            psi.copy_(c[:j + 1] @ V[:j + 1])
+    return psi, status
+
+
+def _arnoldi_step(k, mv, state, ctl):
+    """Arnoldi iteration k with classical Gram–Schmidt (the JAX
+    ``_arnoldi_loop``).
+
+    The projections run against the k+1 live rows of the buffer only: its
+    other rows are exact zeros, so the result is the padded form's.  A
+    breakdown leaves row k+1 zero."""
+    V, T, c, flags, status = state
+    w = mv(k, V[k])
+    live = V[: k + 1]
+    # ⟨V|w⟩ = conj(V·conj(w)): conjugate the one new vector, not V
+    h = (live @ w.conj()).conj()
+    w = w - h @ live
+    b = torch.linalg.vector_norm(w)
+    V[k + 1] = torch.where(b < EPS, 0, w / b)
+    T[: k + 1, k] = h
+    T[k + 1, k] = b
+    CK.krylov_ctl(T, None, c, flags, status, k=k, **ctl)
+
+
+def _lanczos_step(k, mv, state, ctl):
+    """Lanczos iteration k with the reference's recurrence.
 
     The reduced-matrix diagonal is ``α_k = ⟨v₀|H·v_k⟩`` (projection onto
     the initial vector, not ``v_k``): an oblique variant that is exact by
     construction, since ``β_k v_{k+1} ≝ H v_k − α_k v_k − β_{k−1} v_{k−1}``
     makes ``H·Vᵀ = Vᵀ·T`` hold in the generated basis.  The regression
-    literals of the reference embed its stopping behaviour.
-    """
-    n = v0.shape[0]
-    real = v0.real.dtype
-    V = torch.zeros((k_max + 1, n), dtype=v0.dtype, device=v0.device)
-    V[0] = v0
-    alpha = torch.zeros(k_max, dtype=real, device=v0.device)
-    beta = torch.zeros(k_max, dtype=real, device=v0.device)
-    psi_prev = torch.zeros_like(v0)
-    for k in range(k_max):
-        w = matvec(k, V[k])
-        a = torch.sum(v0.conj() * w)
-        w = w - a * V[k]
-        if k > 0:
-            w = w - beta[k - 1] * V[k - 1]
-        b = torch.linalg.vector_norm(w)
-        breakdown = bool(b < EPS)
-        if not breakdown:
-            V[k + 1] = w / b
-        alpha[k] = a.real
-        beta[k] = b
-        T = (
-            torch.diag(alpha[: k + 1])
-            + torch.diag(beta[:k], 1)
-            + torch.diag(beta[:k], -1)
-        )
-        w_e, U = torch.linalg.eigh(T)
-        c = (U.to(v0.dtype) * torch.exp(scale * w_e.to(v0.dtype))) @ U[0].to(
-            v0.dtype
-        )
-        psi_next = c @ V[: k + 1]
-        err = float(torch.linalg.vector_norm(psi_next - psi_prev))
-        psi_prev = psi_next
-        conv = k > 0 and err < thresh
-        capped = k + 1 >= k_max
-        if conv or breakdown or capped:  # capped at the last k, so always
-            return psi_next, k + 1, capped and not conv and not breakdown
-
-
-def _expm_taylor_small(A: torch.Tensor) -> torch.Tensor:
-    """exp(A) of a tiny (k×k) matrix by scaling-and-squaring Taylor.
-
-    Order 12 after scaling ‖A‖₁ below 1/8: truncation ~(1/8)¹³/13! ≈ 4e-22,
-    far under float32/float64 round-off.  The number of squarings is
-    clamped to 64 and forced to 0 on a non-finite ‖A‖₁, so a NaN or Inf
-    in H_eff comes out at once instead of spinning the squaring loop.
-    """
-    k = A.shape[0]
-    norm1 = float(torch.max(torch.sum(torch.abs(A), dim=0)))
-    if math.isfinite(norm1):
-        s = int(min(max(math.ceil(math.log2(max(norm1, 1e-30))) + 3, 0), 64))
-    else:
-        s = 0
-    As = A / (2.0 ** s)
-    eye = torch.eye(k, dtype=A.dtype, device=A.device)
-    # reverse Horner: p ← I + As·p/c for c = 12, 11, …, 1
-    p = eye
-    for c in range(12, 0, -1):
-        p = eye + (As @ p) / c
-    for _ in range(s):
-        p = p @ p
-    return p
-
-
-def _arnoldi_loop(matvec, v0, scale, thresh, k_max):
-    """Arnoldi with classical Gram–Schmidt (the JAX ``_arnoldi_loop``).
-
-    The projections run against the k+1 live rows of the buffer only: its
-    other rows are exact zeros, so the result is the padded form's.  V is
-    orthonormal, so ‖ψ(k) − ψ(k−1)‖ = ‖c_k − c_{k−1}‖ and the n-dim
-    iterate is formed once, after the loop.
-    """
-    n = v0.shape[0]
-    dtype = v0.dtype
-    V = torch.zeros((k_max + 1, n), dtype=dtype, device=v0.device)
-    V[0] = v0
-    H = torch.zeros((k_max + 1, k_max), dtype=dtype, device=v0.device)
-    c_prev = torch.zeros(k_max, dtype=dtype, device=v0.device)
-    for k in range(k_max):
-        w = matvec(k, V[k])
-        live = V[: k + 1]
-        # ⟨V|w⟩ = conj(V·conj(w)): conjugate the one new vector, not V
-        h = (live @ w.conj()).conj()
-        w = w - h @ live
-        b = torch.linalg.vector_norm(w)
-        breakdown = bool(b < EPS)
-        if not breakdown:
-            V[k + 1] = w / b
-        H[: k + 1, k] = h
-        H[k + 1, k] = b
-        c = torch.zeros(k_max, dtype=dtype, device=v0.device)
-        c[: k + 1] = _expm_taylor_small(scale * H[: k + 1, : k + 1])[:, 0]
-        err = float(torch.linalg.vector_norm(c - c_prev))
-        c_prev = c
-        conv = k > 0 and err < thresh
-        capped = k + 1 >= k_max
-        if conv or breakdown or capped:
-            psi_next = c[: k + 1] @ V[: k + 1]
-            return psi_next, k + 1, capped and not conv and not breakdown
+    literals of the reference embed its stopping behaviour.  That basis is
+    not orthogonal, so column k of its Gram matrix G is kept for the
+    control step's ‖ψ_k − ψ_{k−1}‖."""
+    V, T, c, flags, status, G, beta = state
+    w = mv(k, V[k])
+    a = torch.sum(V[0].conj() * w)
+    w = w - a * V[k]
+    if k > 0:
+        w = w - beta[k - 1] * V[k - 1]
+    b = torch.linalg.vector_norm(w)
+    V[k + 1] = torch.where(b < EPS, 0, w / b)
+    beta[k] = b
+    T[k, k] = a.real
+    T[k + 1, k] = b
+    T[k, k + 1] = b
+    g = (V[: k + 1] @ V[k].conj()).conj()  # ⟨V_i|V_k⟩
+    G[: k + 1, k] = g
+    G[k, : k + 1] = g.conj()
+    CK.krylov_ctl(T, G, c, flags, status, k=k, **ctl)

@@ -73,7 +73,9 @@ def _cholesky_qr(
         rel = max(shift_rel if it == 0 else 0.0, noise_floor)
         s = rel * torch.clamp_min(torch.max(d), 1e-30)
         g = g + torch.diag(torch.where(live, s, one)).to(g.dtype)
-        L = torch.linalg.cholesky(g)
+        # no info check (a host read): a NaN propagates, as in the JAX
+        # package
+        L, _ = torch.linalg.cholesky_ex(g, check_errors=False)
         # q·L⁻ᴴ, i.e. solve X·Lᴴ = q
         q = torch.linalg.solve_triangular(L.mH, q, upper=True, left=False)
         Rit = L.mH
@@ -156,6 +158,23 @@ def heff_apply_lo(Lp, Wp, Rp, psi: torch.Tensor) -> torch.Tensor:
     t2 = _cx_einsum("kjxc,aijc->kiax", t1, Wp)
     sr, si = _cx_einsum("kiax,bak->bix", t2, Lp, out_dtype=torch.float32)
     return torch.complex(sr, si).to(psi.dtype)
+
+
+def renorm_block_left_lo(L, a_bra, W, a_ket) -> torch.Tensor:
+    """:func:`renorm_block_left` at one bf16 pass (``env_precision=
+    "default"``): :func:`heff_apply_lo` in the transfer's roles, ψ = L
+    (b,a,k), L = Ā (o,i,b), W (i,c,a,j), R = A_ket (p,j,k)."""
+    return heff_apply_lo(planar_bf16(torch.conj_physical(a_bra).permute(2, 1, 0)),
+                         planar_bf16(W.permute(1, 3, 0, 2)),
+                         planar_bf16(a_ket.permute(2, 1, 0)), L).to(L.dtype)
+
+
+def renorm_block_right_lo(R, b_bra, W, b_ket) -> torch.Tensor:
+    """:func:`renorm_block_right` at one bf16 pass: ψ = R (b,a,k), L = B̄
+    (o,i,b), W (i,c,a,j), R = B_ket (p,j,k)."""
+    return heff_apply_lo(planar_bf16(torch.conj_physical(b_bra)),
+                         planar_bf16(W.permute(1, 0, 3, 2)),
+                         planar_bf16(b_ket), R).to(R.dtype)
 
 
 def keff_apply_lo(Lp, Rp, sig: torch.Tensor) -> torch.Tensor:

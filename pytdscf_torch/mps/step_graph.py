@@ -25,24 +25,43 @@ raises.  The capture keeps ``torch.cuda.graph``'s global error mode: a
 host read inside a step (``.item()``, ``float()``, ``.cpu()`` on a CUDA
 tensor) raises there, and nothing catches it.
 
+A step that runs the Krylov program over the einsums (Arnoldi, the
+einsum Lanczos) holds IF nodes: each Krylov iteration after the first, and
+each gather of ψ, is the body of a conditional node that a replay runs
+only where the device control step (``cuda_krylov.krylov_ctl``) left its
+flag set (``cuda_krylov.GraphBranches``).  The host step before capture
+may stop a Krylov call before its last iteration, so those bodies are
+warmed first by a throwaway capture in relaxed mode, whose graph is
+dropped.
+
 Python-side counters advance once, at capture: the kernel wrappers'
 launch counters and the engine's Krylov call counts.  The program records
 what one captured step added to each, takes it back (the capture ran no
-kernel), and adds it at every replay, so the counters read the same
-whichever way a step ran.
+kernel), and adds at every replay what the step added.  The kernels a
+Krylov iteration launches (``heff_lo``, ``keff_lo``, ``matvec_hi``,
+``krylov_ctl``, and the transfers ``renorm_hi``, ``renorm_lo``) count
+their own launches instead: launched in a capture, each adds one to an
+int32 on the device (``_cuda.replay_count``) every time a replay runs it,
+so a body that a replay skips adds nothing, and :meth:`StepProgram.settle`
+reads those counts after a block (one host read) into the wrappers'
+``launches``.  An IF node's body may launch no other counted kernel.  So
+the counters read the same whichever way a step ran.
 """
 
 from __future__ import annotations
 
 import copy
+import gc
 import time
 
 import torch
 
+from pytdscf_torch.mps import cuda_krylov as CK
+
 #: the per-wrapper counters that a step may advance
 _COUNTS = ("launches", "plain_calls", "route_launches", "cluster_launches")
-#: the engine's host-side counts of a step (``krylov_stats``)
-_ENGINE_COUNTS = ("_kry_calls", "_kry_relaxed")
+#: the engine's host-side count of a step's Krylov calls (``krylov_stats``)
+_ENGINE_COUNTS = ("_kry_calls",)
 
 
 def _wrappers() -> tuple:
@@ -54,7 +73,13 @@ def _wrappers() -> tuple:
     from pytdscf_torch.mps import cuda_site as CS
 
     return (CL.lanczos_expm, CQ.mgs_qr, CS.site_step_fused, CM.heff_lo,
-            CM.keff_lo, CR.renorm_hi, CR.matvec_hi)
+            CM.keff_lo, CR.renorm_hi, CR.renorm_lo, CR.matvec_hi,
+            CK.krylov_ctl)
+
+
+def _device_counted() -> tuple:
+    """The wrappers whose kernels count their launches on the device."""
+    return tuple(fn for fn in _wrappers() if hasattr(fn, "replayed"))
 
 
 def _plans() -> tuple:
@@ -90,6 +115,19 @@ def _diff(after: list, before: list) -> list:
             new = new - old
         out.append((obj, name, new))
     return out
+
+
+def _host_counted(delta: list) -> list:
+    """``delta`` without the launches of :func:`_device_counted` wrappers
+    (a replay counts those on the device)."""
+    device = _device_counted()
+    return [(obj, name, 0 if name == "launches" and obj in device else value)
+            for obj, name, value in delta]
+
+
+def _nonzero(delta: list) -> bool:
+    return any(any(value.values()) if isinstance(value, dict) else value
+               for _, _, value in delta)
 
 
 def _restore(saved: list) -> None:
@@ -166,6 +204,8 @@ class StepProgram:
             for t in _carry(engine)
         ]
         self.graph: torch.cuda.CUDAGraph | None = None
+        #: the IF nodes of the graph (their stream and pool)
+        self.branches: CK.GraphBranches | None = None
         #: what one step adds to each counter (at each replay)
         self.delta: list = []
         #: seconds to record and instantiate the graph
@@ -218,28 +258,81 @@ class StepProgram:
                     "storage, which the copy-back would overwrite")
         copy_all(self.buffers, new)
 
-    def capture(self, engine) -> None:
-        """Record one step as a CUDA graph in a private memory pool."""
+    def _record(self, engine, graph, branches, mode: str) -> float:
+        """Record one step into ``graph`` with ``branches`` as its IF nodes:
+        the seconds it took.  The engine's state and every counter are as
+        before it."""
         before = _counts(engine)
-        misses = _plan_misses()
-        graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        # no garbage collection inside the capture: collecting an old
+        # graph there destroys it, an API call that invalidates a capture
+        # in progress
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with CK.capturing(branches), torch.cuda.graph(
+                    graph, capture_error_mode=mode):
                 self._body(engine)
-            self.capture_s = time.perf_counter() - t0
-            after = _counts(engine)
+            return time.perf_counter() - t0
         finally:
+            if collecting:
+                gc.enable()
             # the capture ran no kernel: no count advanced, and the state
             # is the buffers' as before it
+            self._captured = _diff(_counts(engine), before)
             _restore(before)
             self.install(engine)
+            # the bodies' snapshot functions hold the engine, which holds
+            # this program: drop them, so that no cycle keeps a graph alive
+            # until a collection runs
+            branches.snap = branches.diff = None
+
+    def capture(self, engine, warm: bool = False) -> None:
+        """Record one step as a CUDA graph in a private memory pool.  With
+        ``warm`` (the step has IF nodes) a throwaway capture in relaxed
+        mode first records every body once."""
+        misses = _plan_misses()
+        self.device = torch.device(engine.device)
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        for fn in _device_counted():
+            if self.device.index not in fn.replayed:
+                fn.replayed[self.device.index] = torch.zeros(
+                    1, dtype=torch.int32, device=self.device)
+
+        def branches(relaxed):
+            return CK.GraphBranches(engine.device, relaxed,
+                                    lambda: _counts(engine), _diff)
+
+        if warm:
+            self._record(engine, torch.cuda.CUDAGraph(), branches(True),
+                         "relaxed")
+        graph = torch.cuda.CUDAGraph()
+        ifs = branches(False)
+        self.capture_s = self._record(engine, graph, ifs, "global")
         if _plan_misses() != misses:
             raise RuntimeError(
                 "step program: a route plan was worked out during capture; "
                 "the step before it must have filled every plan")
-        self.delta = _diff(after, before)
+        if any(_nonzero(_host_counted(d)) for d in ifs.delta):
+            raise RuntimeError(
+                "step program: an IF-node body launched a kernel that does "
+                "not count its launches on the device")
+        self.delta = _host_counted(self._captured)
+        self.branches = ifs if ifs.delta else None
         self.graph = graph
+
+    def settle(self) -> None:
+        """Add to the wrappers' ``launches`` what the replays since the
+        last settle launched of the kernels that count on the device (one
+        host read), and zero those counts."""
+        if self.graph is None:
+            return
+        fns = _device_counted()
+        counts = [fn.replayed[self.device.index] for fn in fns]
+        for fn, n in zip(fns, torch.cat(counts).tolist()):
+            fn.launches += n
+        torch._foreach_zero_(counts)
 
     def run(self, engine) -> None:
         """One step: a replay of the graph on the card (counted in

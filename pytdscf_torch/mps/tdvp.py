@@ -15,33 +15,35 @@ each site:
 
 Two Krylov routes.  Lanczos (Hermitian H_eff, the small-bond chains): the
 whole exponential is one ``cuda_lanczos.lanczos_expm`` call, the kernel on
-CUDA, where its channels fit (``cuda_lanczos.fits``); with
+CUDA, where its channels fit (``cuda_lanczos.fits``) and the matvecs are
+exact ("highest", not relaxed: the JAX package's ``use_plz`` rule); with
 ``Config.fused_site`` the five steps of a non-last site are one
-``cuda_site.site_step_fused`` call where its shapes fit.  A Lanczos site
-too large for the kernel, and every Arnoldi site (any H_eff, the Liouville
-MPDO), run ``integrator.krylov_expm`` over the exact float32 einsum
-matvecs (or, at ``matvec_precision="high"``, the bf16x3
-``cuda_renorm.heff_hi``/``keff_hi`` kernel) and, with
-``krylov_relaxed``, the single-bf16-pass ``cuda_matvec`` kernels for
-iterations ``>= relax_after``.  At ``env_precision="high"`` the in-sweep
-environment transfers run the same bf16x3 kernel
-(``cuda_renorm.renorm_left_hi``/``renorm_right_hi``).
-The Lanczos route reads nothing back to the host inside a sweep; the
-Arnoldi route reads one scalar per Krylov iteration (its stopping test).
-The Krylov telemetry stays on the device until
-:meth:`TDVPEngine.krylov_stats`.
+``cuda_site.site_step_fused`` call where its shapes fit.  Every other site
+(Arnoldi for any H_eff, the Liouville MPDO; Lanczos past the kernel, with
+relaxed Krylov or with "high"/"default" matvecs) runs
+``integrator.krylov_expm`` over the einsum matvecs: float32 (TF32 off) at
+``matvec_precision="highest"``, the bf16x3 ``cuda_renorm.heff_hi``/
+``keff_hi`` kernel at "high", the one-bf16-pass ``cuda_matvec`` kernels at
+"default" and, with ``krylov_relaxed``, for iterations ``>= relax_after``.
+At ``env_precision="high"`` the in-sweep environment transfers run the
+bf16x3 kernel (``cuda_renorm.renorm_left_hi``/``renorm_right_hi``), at
+"default" its one-pass form (``renorm_left_lo``/``renorm_right_lo``).
+The Krylov control (the stopping tests, the small exponential, the
+status) runs on the device (``cuda_krylov.krylov_ctl``): a step launched
+from the host reads one flag per Krylov iteration of the einsum route and
+nothing on the kernel routes.  The Krylov telemetry stays on the device
+until :meth:`TDVPEngine.krylov_stats`.
 
 Two drivers.  :meth:`TDVPEngine.propagate` runs one step, each kernel
 launched from the host.  :meth:`TDVPEngine.propagate_steps` and
 :meth:`~TDVPEngine.propagate_steps_collect` (the JAX package's fused
 multi-step driver) run a block of steps, the latter collecting each step's
 pre-step observables on the device (:meth:`~TDVPEngine.properties_submit`)
-for one packed host read per block (:func:`fetch_many`).  Where every site
-update takes a route that reads nothing back (:meth:`~TDVPEngine.
-capturable`), the block's steps run as a program over fixed buffers
-(``step_graph.StepProgram``): on the card one step is recorded as a CUDA
-graph and replayed, on the CPU the same step runs uncaptured.  Elsewhere
-the block runs :meth:`~TDVPEngine.propagate` step by step.
+for one packed host read per block (:func:`fetch_many`).  The block's steps
+run as a program over fixed buffers (``step_graph.StepProgram``, where
+:meth:`~TDVPEngine.capturable` holds): on the card one step is recorded as
+a CUDA graph, its Krylov iterations as IF nodes, and replayed; on the CPU
+the same step runs uncaptured.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import numpy as np
 import torch
 
 from pytdscf_torch.config import Config
+from pytdscf_torch.mps import cuda_krylov as CK
 from pytdscf_torch.mps import cuda_renorm as CR
 from pytdscf_torch.mps import cuda_site as CS
 from pytdscf_torch.mps import kernels as K
@@ -101,10 +104,18 @@ def _takes_fused_site(cfg, psi_shape, W_shape, nxt_shape) -> bool:
     kernel (``cuda_site.site_step_fused``)."""
     return (
         cfg.fused_site
-        and cfg.integrator != "arnoldi"
-        and cfg.matvec_precision == cfg.env_precision == "highest"
+        and _takes_lanczos_kernel(cfg)
+        and cfg.env_precision == "highest"
         and CS.site_fits(psi_shape, W_shape, nxt_shape, cfg.max_krylov)
     )
+
+
+def _takes_lanczos_kernel(cfg) -> bool:
+    """Whether Lanczos sites may run the Lanczos kernel (where its channels
+    fit): exact "highest" matvecs and no relaxation, the JAX package's
+    ``use_plz`` rule; otherwise ``integrator.krylov_expm`` runs."""
+    return (cfg.integrator == "lanczos" and not cfg.krylov_relaxed
+            and cfg.matvec_precision == "highest")
 
 
 def _normalize_block(B):
@@ -118,39 +129,43 @@ def _normalize_block(B):
 def _einsum_expm(v, scale, fac, cfg, L, R, W=None):
     """exp(scale·H)·v by ``integrator.krylov_expm`` for H_eff (``W``
     given) or K_eff: Arnoldi, or Lanczos with ``cfg.integrator ==
-    "lanczos"`` (a site too large for the Lanczos kernel).
+    "lanczos"`` (a site the Lanczos kernel does not take).
 
-    Returns ``(v', status, relaxed)``: ``status = [k_used, bad]`` (int32,
-    on v's device) and the number of relaxed matvecs that ran.  The exact
-    matvecs are float32 einsums (TF32 off) or, at ``matvec_precision=
-    "high"``, the bf16x3 chain (``cuda_renorm``); with ``krylov_relaxed``
-    the iterations ``k >= relax_after`` run the bf16 kernels."""
+    Returns ``(v', status, relaxed)``: ``status = [k_used, bad]`` and the
+    number of relaxed matvecs that ran (int32, on v's device).  The exact
+    matvecs are float32 einsums (TF32 off), at ``matvec_precision="high"``
+    the bf16x3 chain (``cuda_renorm``), at "default" the one-pass bf16
+    kernels (``cuda_matvec``); with ``krylov_relaxed`` the iterations
+    ``k >= relax_after`` run the one-pass kernels."""
     shape = v.shape
-    high = cfg.matvec_precision == "high"
+    prec = cfg.matvec_precision
+    lo = None
     if W is not None:
-        apply = (partial(CR.heff_hi, CR.heff_operands(L, W, R)) if high
-                 else partial(K.heff_apply, L, W, R))
-        mv_lo = (K.make_hmatvec_lo(L, W, R, shape, fac)
-                 if cfg.krylov_relaxed else None)
+        if cfg.krylov_relaxed or prec == "default":
+            lo = K.make_hmatvec_lo(L, W, R, shape, fac)
+        if prec == "high":
+            apply = partial(CR.heff_hi, CR.heff_operands(L, W, R))
+        else:
+            apply = partial(K.heff_apply, L, W, R)
     else:
-        apply = (partial(CR.keff_hi, CR.keff_operands(L, R)) if high
-                 else partial(K.keff_apply, L, R))
-        mv_lo = (K.make_kmatvec_lo(L, R, shape, fac)
-                 if cfg.krylov_relaxed else None)
+        if cfg.krylov_relaxed or prec == "default":
+            lo = K.make_kmatvec_lo(L, R, shape, fac)
+        if prec == "high":
+            apply = partial(CR.keff_hi, CR.keff_operands(L, R))
+        else:
+            apply = partial(K.keff_apply, L, R)
 
     def mv(x):
         return (apply(x.reshape(shape)) * fac).reshape(-1)
 
-    out, k_used, bad = krylov_expm(
-        mv, v.reshape(-1), scale, cfg.thresh_exp, cfg.max_krylov,
-        cfg.conserve_norm, arnoldi=cfg.integrator == "arnoldi",
-        return_iterations=True,
-        matvec_lo=mv_lo, relax_after=cfg.relax_after,
+    out, status = krylov_expm(
+        lo if prec == "default" else mv, v.reshape(-1), scale, cfg.thresh_exp,
+        cfg.max_krylov, cfg.conserve_norm,
+        arnoldi=cfg.integrator == "arnoldi", return_status=True,
+        matvec_lo=lo if cfg.krylov_relaxed else None,
+        relax_after=cfg.relax_after,
     )
-    status = torch.tensor([k_used, int(bad)], dtype=torch.int32,
-                          device=v.device)
-    relaxed = max(k_used - cfg.relax_after, 0) if cfg.krylov_relaxed else 0
-    return out.reshape(shape), status, relaxed
+    return out.reshape(shape), status[:2], status[2]
 
 
 def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
@@ -161,23 +176,23 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
     their log-scales; the block on the sweep's trailing side is the
     growing system block, the other the cached environment.  ``stats``
     holds the ``[k_used, bad]`` status of each Krylov call, ``relaxed``
-    the number of relaxed matvecs that ran.
+    the relaxed-matvec counts (device scalars) of its einsum-route calls.
     """
     l, d, r = psi.shape
     conserve = cfg.conserve_norm
-    arnoldi = cfg.integrator == "arnoldi"
     if not last and _takes_fused_site(cfg, psi.shape, W.shape, nxt.shape):
         # the whole update as one call of the fused site kernel
         site_out, psi_next, block, log_new, st = CS.site_step_fused(
             psi, nxt, L, W, R, scale, cfg.thresh_exp, lL, lR,
             forward=forward, max_dim=cfg.max_krylov, conserve=conserve,
         )
-        return site_out, psi_next, (block, log_new), [st[:2], st[2:]], 0
+        return site_out, psi_next, (block, log_new), [st[:2], st[2:]], []
     hfac = torch.exp(lL + lR)
-    relaxed = 0
-    if arnoldi or not CL.fits((l * d, r), W.shape[-1], cfg.max_krylov):
+    relaxed = []
+    kernel = _takes_lanczos_kernel(cfg)
+    if not kernel or not CL.fits((l * d, r), W.shape[-1], cfg.max_krylov):
         psi_new, st_h, n = _einsum_expm(psi, scale, hfac, cfg, L, R, W)
-        relaxed += n
+        relaxed.append(n)
     else:
         ch = CL.heff_channels(L, W, R, hfac)
         out, st_h = CL.lanczos_expm(
@@ -187,24 +202,26 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
         psi_new = out.reshape(l, d, r)
     if last:
         return psi_new, None, None, [st_h], relaxed
-    high = cfg.env_precision == "high"
+    env = cfg.env_precision
     if forward:
         site_out, sig = K.qr_right(psi_new)
-        renorm = CR.renorm_left_hi if high else K.renorm_block_left
+        renorm = {"high": CR.renorm_left_hi, "default": CR.renorm_left_lo
+                  }.get(env, K.renorm_block_left)
         raw = renorm(L, site_out, W, site_out)
         l_sys, l_env = lL, lR
     else:
         sig, site_out = K.lq_left(psi_new)
-        renorm = CR.renorm_right_hi if high else K.renorm_block_right
+        renorm = {"high": CR.renorm_right_hi, "default": CR.renorm_right_lo
+                  }.get(env, K.renorm_block_right)
         raw = renorm(R, site_out, W, site_out)
         l_sys, l_env = lR, lL
     block, dl = _normalize_block(raw)
     log_new = l_sys + dl
     kL, kR = (block, R) if forward else (L, block)
     kfac = torch.exp(log_new + l_env)
-    if arnoldi or not CL.fits(sig.shape, kR.shape[1], cfg.max_krylov):
+    if not kernel or not CL.fits(sig.shape, kR.shape[1], cfg.max_krylov):
         sig_new, st_k, n = _einsum_expm(sig, -scale, kfac, cfg, kL, kR)
-        relaxed += n
+        relaxed.append(n)
     else:
         kch = CL.keff_channels(kL, kR, kfac)
         sig_new, st_k = CL.lanczos_expm(
@@ -232,16 +249,6 @@ class TDVPEngine:
             raise NotImplementedError(
                 f"relax={config.relax!r}: relaxation is not ported yet "
                 "(ROADMAP A7)"
-            )
-        if config.krylov_relaxed and config.integrator != "arnoldi":
-            raise NotImplementedError(
-                "relaxed Krylov with Lanczos: the port relaxes Arnoldi "
-                "only (ROADMAP A2)"
-            )
-        if config.matvec_precision == "high" and config.integrator == "lanczos":
-            raise NotImplementedError(
-                "bf16x3 matvecs with Lanczos: the Lanczos kernel runs "
-                "float32 products only (ROADMAP A6)"
             )
         if config.splitting != "lt2":
             raise NotImplementedError(
@@ -273,15 +280,16 @@ class TDVPEngine:
         #: fused MPOs of other operators (``expectation``), by id, with the
         #: operator kept alive beside them
         self._op_W: dict[int, tuple] = {}
+        #: complex128 copies of those MPOs (``_wide``), by id, with the list
+        self._wide_W: dict[int, tuple] = {}
         #: env stack of (block, log-scale): blocks accumulated by the
         #: previous half-sweep; popping yields the next site's environment
         self.env_stack: list | None = None
-        #: device-side Krylov telemetry [Σ k_used, # cap hits] and the host
-        #: count of Krylov calls and of relaxed matvecs since the last
+        #: device-side Krylov telemetry [Σ k_used, # cap hits, # relaxed
+        #: matvecs] and the host count of Krylov calls since the last
         #: krylov_stats()
         self._kry_sum: torch.Tensor | None = None
         self._kry_calls = 0
-        self._kry_relaxed = 0
         self._kry_warned = False
         #: running max gauge deviation (pytest_enabled self-checks)
         self._gauge_dev: torch.Tensor | None = None
@@ -318,22 +326,28 @@ class TDVPEngine:
             torch.zeros((), dtype=real, device=self.device),
         )
 
+    def _wide(self, W) -> list[torch.Tensor]:
+        """The complex128 copy of the MPO ``W`` (one of the engine's own
+        lists), made once."""
+        if id(W) not in self._wide_W:
+            self._wide_W[id(W)] = (W, [w.to(torch.complex128) for w in W])
+        return self._wide_W[id(W)][1]
+
     def _right_block(self, W, dtype=None):
         """The right environment of site 0 for the MPO ``W``, contracted
         over sites N−1..1 at unit norm: ``(block, log-scale)``.  With
-        ``dtype`` (complex128) the contraction runs on copies of the cores
-        and of ``W`` in that precision."""
+        ``dtype`` complex128 the contraction runs on complex128 copies of
+        the cores and of ``W`` (:meth:`_wide`), its log-scale in float64."""
         cores = self.cores[0]
         block, log = self._trivial()
-        if dtype is not None:
+        if dtype == torch.complex128:
             cores = [c.to(dtype) for c in cores]
-            W = [w.to(dtype) for w in W]
+            W = self._wide(W)
             block = block.to(dtype)
-            log = log.to(torch.float64 if dtype == torch.complex128
-                         else torch.float32)
+            log = log.to(torch.float64)
         for p in range(self.nsite - 1, 0, -1):
-            block, dl = _normalize_block(
-                K.renorm_block_right(block, cores[p], W[p], cores[p]))
+            raw = K.renorm_block_right(block, cores[p], W[p], cores[p])
+            block, dl = _normalize_block(raw)
             log = log + dl
         return block, log
 
@@ -373,19 +387,19 @@ class TDVPEngine:
         sys_stack = [(sys_block, sys_log)]
         cores = self.cores[0]
         order = range(self.nsite) if forward else range(self.nsite - 1, -1, -1)
-        stats = []
+        stats, relaxed = [], []
         for pos, p in enumerate(order):
             last = pos == self.nsite - 1
             env_block, env_log = env_stack.pop()
             q = p + 1 if forward else p - 1
             L, lL = (sys_block, sys_log) if forward else (env_block, env_log)
             R, lR = (env_block, env_log) if forward else (sys_block, sys_log)
-            site_out, psi_next, new, st, relaxed = _site_step(
+            site_out, psi_next, new, st, rel = _site_step(
                 cores[p], None if last else cores[q], L, self.W[p], R, scale,
                 lL, lR, cfg=cfg, forward=forward, last=last,
             )
             stats += st
-            self._kry_relaxed += relaxed
+            relaxed += rel
             cores[p] = site_out
             if last:
                 break
@@ -400,7 +414,9 @@ class TDVPEngine:
             sys_stack.append(new)
         self.env_stack = sys_stack
         self._env_side = "left" if forward else "right"
-        acc = torch.stack(stats).sum(0)
+        rel = (torch.stack(relaxed).sum().reshape(1) if relaxed
+               else torch.zeros(1, dtype=torch.int32, device=self.device))
+        acc = torch.cat([torch.stack(stats).sum(0), rel.to(torch.int32)])
         self._kry_sum = acc if self._kry_sum is None else self._kry_sum + acc
         self._kry_calls += len(stats)
 
@@ -437,39 +453,15 @@ class TDVPEngine:
 
     # ------------------------------------------------ fused multi-step
     def capturable(self) -> bool:
-        """Whether a whole step can be recorded as a CUDA graph: every site
-        update takes a route that reads nothing back to the host (the
-        Lanczos kernel where :func:`cuda_lanczos.fits` takes the H and K
-        steps, or the fused site kernel, and the MGS gauge), decided from
-        the config and the core and MPO shapes before any capture.  The
-        Arnoldi and einsum-Lanczos loops read scalars every iteration, as
-        CholeskyQR³ does, so a step that reaches them is not.  The answer
-        does not depend on the device: on the CPU it selects the same
-        buffer program, run uncaptured."""
-        cfg = self.config
-        if (cfg.integrator != "lanczos" or cfg.krylov_relaxed
-                or cfg.matvec_precision != "highest"
-                or cfg.env_precision != "highest"):
-            return False
-        cores, n = self.cores[0], self.nsite
-        for p in range(n):
-            l, d, r = cores[p].shape
-            W = self.W[p]
-            for forward, q in ((True, p + 1), (False, p - 1)):
-                last = not 0 <= q < n
-                if not last and _takes_fused_site(cfg, cores[p].shape,
-                                                  W.shape, cores[q].shape):
-                    continue
-                if not CL.fits((l * d, r), W.shape[-1], cfg.max_krylov):
-                    return False
-                if last:
-                    continue
-                # the K step runs on the gauge's (bond, bond) factor
-                bond, nc = (r, W.shape[3]) if forward else (l, W.shape[0])
-                if (bond >= K.CHOLESKY_QR_MIN_R
-                        or not CL.fits((bond, bond), nc, cfg.max_krylov)):
-                    return False
-        return True
+        """Whether a whole step can be recorded as a CUDA graph.  Every
+        route reads nothing back to the host inside a step: the Lanczos
+        and fused site kernels, the Krylov program over the einsums (its
+        control on the device, its iterations IF nodes of the graph), the
+        MGS and CholeskyQR³ gauges.  The Krylov control kernel takes
+        ``max_krylov`` up to ``cuda_krylov.MAX_KRYLOV``; beyond, a block runs
+        step by step.  The answer does not depend on the device: on the CPU
+        it selects the same buffer program, run uncaptured."""
+        return self.config.max_krylov <= CK.MAX_KRYLOV
 
     def _ensure_right_stack(self) -> None:
         """Build the right environment stack unless a backward half-sweep
@@ -562,13 +554,17 @@ class TDVPEngine:
             if collect is not None:
                 row, plan, layout = submit()
                 rows.append(row)
+            ctl = CK.krylov_ctl.launches + CK.krylov_ctl.plain_calls
             self._step(scale)
             self.eager_steps += 1
             done = 1
             prog = step_graph.StepProgram(self, scale, collect, rows[0] if rows
                                           else None, plan, layout)
             if self.device.type == "cuda":
-                prog.capture(self)
+                # a step that ran the Krylov program has IF-node bodies
+                # that this host step may have left unrun: warm them first
+                warm = CK.krylov_ctl.launches + CK.krylov_ctl.plain_calls > ctl
+                prog.capture(self, warm=warm)
             self._programs[key] = prog
         prog.load(self)
         for _ in range(done, nsteps):
@@ -576,6 +572,7 @@ class TDVPEngine:
             if collect is not None:
                 rows.append(prog.slot.clone())
         prog.install(self)
+        prog.settle()
         self._check_gauge()
         return rows, prog.plan, prog.layout
 
@@ -608,30 +605,17 @@ class TDVPEngine:
         :meth:`properties_resolve`.  Drivers fetch the items of one or many
         steps with one :func:`fetch_many` (``Config.fetch_stride``).
 
-        When the engine's environment stack is the full right stack a
-        backward half-sweep just built (``_env_side == "right"``), ⟨H⟩
-        reuses its top block: one H_eff and one dot product instead of the
-        chain recontraction of :meth:`expectation`."""
+        ⟨H⟩ (or ⟨O⟩) is :meth:`expectation`'s: the right environment
+        recontracted in complex128, then H_eff at site 0 in complex128, with
+        the value rounded to the working precision.  The
+        sweep's own complex64 blocks are not reused: their top block is
+        where a complex64 run loses ⟨H⟩ (ROADMAP C3)."""
         liouville = self.config.space == "liouville"
         items: list = []
         plan: list = []
         triv, _ = self._trivial()
         if energy:
-            is_ham = operator is None or operator is self.hamiltonian
-            if (
-                is_ham
-                and self.env_stack is not None
-                and self._env_side == "right"
-                and len(self.env_stack) == self.nsite
-            ):
-                block, log = self.env_stack[-1]
-            else:
-                block, log = self._right_block(self._mpo(operator))
-            W0 = self._mpo(operator)[0]
-            psi = self.cores[0][0]
-            sig = K.heff_apply(triv, W0, block, psi)
-            items.append(torch.sum(psi.conj() * sig))
-            items.append(log)
+            items += self._energy(self._mpo(operator))
             plan.append(("energy", 1))
         if autocorr:
             S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
@@ -723,12 +707,22 @@ class TDVPEngine:
         """⟨Ψ|O|Ψ⟩ with Psi canonical at site 0: O is the engine's
         Hamiltonian (``None``) or any operator with ``fused_mpo`` (an
         observable), whose fused MPO is built once and cached."""
-        W = self._mpo(operator)
-        block, log = self._right_block(W)
-        triv, _ = self._trivial()
-        psi = self.cores[0][0]
-        sig = K.heff_apply(triv, W[0], block, psi)
-        return complex(torch.sum(psi.conj() * sig) * torch.exp(log))
+        value, log = self._energy(self._mpo(operator))
+        return complex(value * torch.exp(log))
+
+    def _energy(self, W) -> list[torch.Tensor]:
+        """``[⟨Ψ|O|Ψ⟩ / e^log, log]`` for the MPO ``W``, as device tensors
+        in the working dtypes: the whole contraction (:meth:`_right_block`,
+        H_eff at site 0 and the dot product) in complex128, with only the
+        value and its log-scale rounded to the working dtypes.  A complex64
+        chain contracted in complex64 loses ~1e-5 in its top block (ROADMAP
+        C3); for a complex128 engine this is the plain contraction."""
+        wide = torch.complex128
+        block, log = self._right_block(W, wide)
+        triv, real = self._trivial()
+        psi = self.cores[0][0].to(wide)
+        sig = K.heff_apply(triv.to(wide), self._wide(W)[0], block, psi)
+        return [torch.sum(psi.conj() * sig).to(self.dtype), log.to(real.dtype)]
 
     def pop_states(self) -> list[float]:
         return [float(torch.sum(torch.abs(self.cores[0][0]) ** 2))]
@@ -863,16 +857,16 @@ class TDVPEngine:
         """(mean Krylov dim per call, # calls, # max-dim cap hits, # relaxed
         matvecs) since the last call (the reference's AVG-SIL-iterations
         telemetry).  The relaxed matvecs are Σ max(k_used − relax_after, 0)
-        over the Krylov calls of a relaxed run: the launches the
-        ``cuda_matvec`` kernels should have counted on a card."""
+        over the Krylov calls of a relaxed run, counted on the device by
+        the Krylov control: the launches the ``cuda_matvec`` kernels should
+        have counted on a card."""
         if self._kry_sum is None:
             return 0.0, 0, 0, 0
-        total, capped = (int(x) for x in self._kry_sum.tolist())
-        calls, relaxed = self._kry_calls, self._kry_relaxed
+        total, capped, relaxed = (int(x) for x in self._kry_sum.tolist())
+        calls = self._kry_calls
         if reset:
             self._kry_sum = None
             self._kry_calls = 0
-            self._kry_relaxed = 0
         if capped and not self._kry_warned:
             warnings.warn(
                 f"Krylov exponential hit max_dim={self.config.max_krylov} "

@@ -132,8 +132,6 @@ def test_convert_round_trip():
 @pytest.mark.parametrize("field,value,item", [
     ("relax", "imaginary", "A7"),
     ("relax", "improved", "A7"),
-    ("krylov_relaxed", True, "A2"),  # relaxed Krylov with Lanczos
-    ("matvec_precision", "high", "A6"),  # bf16x3 matvecs with Lanczos
     ("splitting", "suzuki4", "A10"),
     ("splitting", "yoshida4", "A10"),
 ])
@@ -313,3 +311,103 @@ def test_large_lanczos_site_takes_the_einsum_route_on_card(cuda, monkeypatch):
     for a, b in ((got[0], want[0]), (got[1], want[1]), (got[2][0], want[2][0])):
         assert a.is_cuda and bool(torch.isfinite(a).all())
         assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-4
+
+
+# Lanczos sites off the kernel: relaxed Krylov, bf16x3 ("high") and
+# one-pass ("default") matvecs run ``integrator.krylov_expm`` over the
+# einsums, as the JAX package's ``use_plz`` rule sends them to its XLA
+# loop.  The JAX engine on the CPU computes its "high" and "default"
+# einsums exactly (float64: one JAX run serves both) and its relaxed
+# matvecs in bf16 with its own sum order, so the gap is the port's own
+# low-precision products: measured after 3 steps (relative to the state)
+# below 1.5e-6 relaxed (its matvecs from iteration 2 on), 1.7e-5 "high"
+# (bf16x3 carries ~16 mantissa bits) and 1.4e-2 "default" (one bf16 pass,
+# ~8 bits, in every matvec and transfer).
+def _off_kernel_run(jx, jax_change, runs):
+    from pytdscf_torch.mps import cuda_krylov as CK
+
+    cores, ham, phys = _start()
+    jax_engine = jx.TDVPEngine(
+        cores, ham, jx.Config(thresh_exp=1e-9, pallas_site=False,
+                              **jax_change))
+    ports = [convert.from_numpy(jax_engine.to_numpy(), ham.fused_mpo(phys),
+                                Config(thresh_exp=1e-9, **change), "cpu")
+             for change, _ in runs]
+    for _ in range(3):
+        jax_engine.propagate(DT)
+    want = _dense(jax_engine.to_numpy()[0])
+    j_calls, j_capped = jax_engine.krylov_stats()[1:]
+    for port, (change, tol) in zip(ports, runs):
+        lz0, ctl0 = CL.lanczos_expm.plain_calls, CK.krylov_ctl.plain_calls
+        for _ in range(3):
+            port.propagate(DT)
+        gap = np.linalg.norm(_dense(port.to_numpy()[0]) - want)
+        assert gap < tol * np.linalg.norm(want), (change, gap)
+        # no site took the Lanczos kernel; each Krylov iteration ran one
+        # control step
+        avg, calls, capped, relaxed = port.krylov_stats()
+        assert CL.lanczos_expm.plain_calls == lz0
+        assert CK.krylov_ctl.plain_calls - ctl0 == round(avg * calls)
+        assert (calls, capped) == (j_calls, j_capped)
+        assert (relaxed > 0) == bool(change.get("krylov_relaxed"))
+
+
+def test_relaxed_lanczos_matches_jax(jx):
+    change = dict(krylov_relaxed=True)
+    _off_kernel_run(jx, change, [(change, 1.5e-6)])
+
+
+def test_high_and_default_lanczos_match_jax(jx):
+    default = dict(matvec_precision="default", env_precision="default")
+    _off_kernel_run(jx, default, [(dict(matvec_precision="high"), 1e-4),
+                                  (default, 5e-2)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change,tol", [
+    (dict(krylov_relaxed=True), 5e-5),
+    (dict(matvec_precision="high"), 5e-5),
+    (dict(matvec_precision="default", env_precision="default"), 2e-2),
+])
+def test_lanczos_off_the_kernel_on_card(cuda, change, tol):
+    """The same three configurations on the card in complex64, host-driven
+    and as CUDA-graph replays (``propagate_steps``): the replays equal the
+    host-driven steps and both track the CPU's complex128 run at the
+    configuration's own precision (the state distance, relative); no site
+    takes the Lanczos kernel, every Krylov iteration one control kernel,
+    and the low-precision products their kernels."""
+    from pytdscf_torch.mps import cuda_krylov as CK
+    from pytdscf_torch.mps import cuda_matvec as CM
+    from pytdscf_torch.mps import cuda_renorm as CR
+
+    def launches():
+        return (CL.lanczos_expm.launches, CK.krylov_ctl.launches,
+                CM.heff_lo.launches + CM.keff_lo.launches,
+                CR.matvec_hi.launches, CR.renorm_lo.launches)
+
+    cores, ham, phys = _start()
+    cfg = Config(thresh_exp=1e-6, **change)
+    cpu = TDVPEngine(cores, ham, cfg, "cpu")
+    host = TDVPEngine(cores, ham, cfg.replace(dtype="complex64"), cuda)
+    graph = TDVPEngine(cores, ham, cfg.replace(dtype="complex64"), cuda)
+    before = launches()
+    for _ in range(3):
+        cpu.propagate(DT)
+        host.propagate(DT)
+    n = [a - b for a, b in zip(launches(), before)]
+    graph.propagate_steps(DT, 3)
+    torch.cuda.synchronize()
+    assert (graph.eager_steps, graph.graph_steps) == (1, 2)
+    stats = host.krylov_stats()
+    assert stats == graph.krylov_stats()
+    assert all(torch.equal(a, b) for a, b in zip(host.cores[0], graph.cores[0]))
+    mirror = convert.from_numpy(host.to_numpy(), ham.fused_mpo(phys),
+                                Config(), "cpu")
+    assert cpu.distance(mirror) < tol
+    avg, calls, _, relaxed = stats
+    assert n[0] == 0 and n[1] == round(avg * calls)
+    low = change.get("matvec_precision") == "default"
+    assert n[2] == (round(avg * calls) if low else relaxed)
+    assert (n[2] > 0) == (low or bool(change.get("krylov_relaxed")))
+    assert (n[3] > 0) == (change.get("matvec_precision") == "high")
+    assert n[4] == (3 * 2 * (NSITE - 1) if low else 0)

@@ -11,13 +11,14 @@ per-step loop on the 6-site singlet-fission chain (complex128), the
 deferred observables against the JAX package's on the same state, the
 LVC exciton model of ``tests/test_exciton_propagate.py`` through the
 port's Simulator at strides 1, 3 and 4 against the JAX Simulator at
-stride 4 (pinned to its MGS gauge, the port's), the backup boundary, and
-the capture decision.  The JAX runs are module-scoped and run once.
+stride 4 (pinned to its MGS gauge, the port's), the backup boundary, the
+capture decision, and the radical pair's Arnoldi blocks (relaxed Krylov
+at "balanced" and "throughput", and exact) on the step program.  The JAX
+runs are module-scoped and run once.
 
 Tolerances: on the CPU the program runs the same operations on buffers
 of the same layouts as ``propagate``, so blocks equal the per-step loop
-to 1e-12 (measured: bit for bit), and the non-capturable radical pair,
-which runs ``propagate`` step by step, bit for bit.  Against JAX: the same
+to 1e-12 (measured: bit for bit), the radical pair's too.  Against JAX: the same
 recurrence in float64, so 1e-10, the JAX package's own bar for its fused
 driver (``tests/test_fused_driver.py``).
 
@@ -376,12 +377,13 @@ def _past_fits(monkeypatch):
 @pytest.mark.parametrize("change,want", [
     ({}, True),
     ({"fused_site": True}, True),
-    ({"integrator": "arnoldi"}, False),
-    ({"integrator": "arnoldi", "krylov_relaxed": True}, False),
-    ({"krylov_relaxed": True}, False),
-    ({"matvec_precision": "high"}, False),
-    ({"env_precision": "high"}, False),
-    (_past_fits, False),
+    ({"integrator": "arnoldi"}, True),
+    ({"integrator": "arnoldi", "krylov_relaxed": True}, True),
+    ({"krylov_relaxed": True}, True),
+    ({"matvec_precision": "high"}, True),
+    ({"env_precision": "high"}, True),
+    (_past_fits, True),
+    ({"max_krylov": 65}, False),
 ])
 def test_capturable(monkeypatch, change, want):
     engine = _chain()
@@ -392,7 +394,7 @@ def test_capturable(monkeypatch, change, want):
     assert engine.capturable() is want
 
 
-def _radical_pair():
+def _radical_pair(preset="balanced"):
     from pytdscf_torch.models.radical_pair import (
         radical_pair_liouvillian,
         singlet_product_state,
@@ -420,27 +422,46 @@ def _radical_pair():
     config = Config(integrator="arnoldi", max_krylov=7, thresh_exp=1e-6,
                     conserve_norm=False, space="liouville")
     engine = TDVPEngine([full], model.hamiltonian,
-                        config.with_precision_preset("balanced"), "cpu")
+                        config.with_precision_preset(preset), "cpu")
     engine.right_canonicalize()
     return engine
 
 
 def test_radical_pair_steps_bit_for_bit():
-    """The Arnoldi radical pair is not capturable: its block runs
-    ``propagate`` step by step, bit for bit, with its trace as the norm."""
+    """The Arnoldi radical pair ("balanced": relaxed Krylov) runs the step
+    program (its Krylov control on the device; uncaptured on the CPU): bit
+    for bit with ``propagate``, with its trace as the norm."""
     ref, blk = _radical_pair(), _radical_pair()
-    assert not blk.capturable()
+    assert blk.capturable()
     for _ in range(2):
         ref.propagate(0.5)
     items, plan = blk.propagate_steps_collect(0.5, 2)
     assert all(torch.equal(a, b) for a, b in zip(ref.cores[0], blk.cores[0]))
     assert ref.krylov_stats() == blk.krylov_stats()
-    assert (blk.eager_steps, blk.graph_steps, blk._programs) == (2, 0, {})
+    assert (blk.eager_steps, blk.graph_steps, len(blk._programs)) == (2, 0, 1)
     vals = fetch_many(items, blk.fetch_real_dtype())
     assert dict(plan)["trace"] == 1
     first = blk.properties_resolve([v[0] for v in vals], plan)
     start = _radical_pair()
     assert abs(first["norm"] - abs(start.trace())) < 1e-12
+
+
+@pytest.mark.parametrize("preset", ["throughput", "exact"])
+def test_radical_pair_program_bit_for_bit(preset):
+    """The radical pair's blocks at "throughput" (bf16x3 prefix and
+    transfers, relaxed tail) and "exact" (float32 Arnoldi) run the step
+    program on the CPU: 1 + 2 steps bit for bit with ``propagate``, the
+    same Krylov telemetry, the relaxed matvecs counted on the device."""
+    ref, blk = _radical_pair(preset), _radical_pair(preset)
+    for _ in range(3):
+        ref.propagate(0.5)
+    blk.propagate_steps(0.5, 1)
+    blk.propagate_steps(0.5, 2)
+    assert all(torch.equal(a, b) for a, b in zip(ref.cores[0], blk.cores[0]))
+    stats = ref.krylov_stats()
+    assert stats == blk.krylov_stats()
+    assert (stats[3] > 0) == (preset == "throughput")
+    assert (blk.eager_steps, blk.graph_steps) == (3, 0)
 
 
 # ------------------------------------------------------------ on the card

@@ -166,13 +166,15 @@ def test_precision_presets_match_jax(preset):
 
 
 def test_throughput_preset_raises():
-    """The throughput rung runs ("high" = bf16x3); what it must not fall to,
-    the one-pass "default" product, raises naming ROADMAP A6, and so do
-    unknown presets and precisions."""
+    """The throughput rung runs ("high" = bf16x3), and so does the one-pass
+    "default" product, which no preset selects; unknown presets and
+    precisions raise."""
     assert Config().with_precision_preset("throughput").env_precision == "high"
     for field in ("matvec_precision", "env_precision"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            Config(**{field: "default"})
+        assert getattr(Config(**{field: "default"}), field) == "default"
+        for preset in ("throughput", "balanced", "precise", "exact"):
+            assert getattr(Config().with_precision_preset(preset),
+                           field) != "default"
         with pytest.raises(ValueError):
             Config(**{field: "fast"})
     with pytest.raises(ValueError):
@@ -258,9 +260,9 @@ def test_liouville_relaxed_matches_jax(jx):
 def test_relaxed_needs_arnoldi_and_liouville_norm():
     basis, model, phys, ele = _model("pytdscf_torch", 1)
     cores = _start(basis, phys, ele, chi=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        TDVPEngine([cores], model.hamiltonian,
-                   Config(space="liouville", krylov_relaxed=True), "cpu")
+    # relaxed Krylov with Lanczos is taken (its sites run krylov_expm)
+    TDVPEngine([cores], model.hamiltonian,
+               Config(space="liouville", krylov_relaxed=True), "cpu")
     te = TDVPEngine([cores], model.hamiltonian,
                     Config(space="liouville", integrator="arnoldi"), "cpu")
     assert te.norm() == pytest.approx(abs(te.trace()))
@@ -295,3 +297,50 @@ def test_liouville_throughput_matches_jax(jx):
     nsite = te.nsite
     assert CR.renorm_hi.plain_calls - r0 == STEPS * 2 * (nsite - 1)
     assert CR.matvec_hi.plain_calls - m0 == calls
+
+
+# ------------------------------------- the reference's literal (ROADMAP A4)
+@pytest.mark.parametrize("stride", [1, 4])
+def test_simulator_matches_dense_radical_pair(tmp_path, monkeypatch, stride):
+    """The port's Liouville ``Simulator.propagate`` (Arnoldi,
+    ``conserve_norm=False``) on ``tests/test_radical_pair.py``'s small
+    radical pair against its dense ``expm`` trajectory at that test's
+    atol 5e-7: the electron-pair reduced density of every step (through
+    the port's ``reduced_density.nc``), at ``fetch_stride`` 1 and 4.  At
+    stride 4 a run of populations rows runs the fused blocks (the step
+    program, uncaptured on the CPU): its rows are the stride-1 run's, text
+    for text."""
+    from test_radical_pair import (B0, D0, DT, J, KS, KT, NSTEP, SCALE,
+                                   _dense_trajectory)
+
+    from pytdscf_torch import Model, Simulator, units
+    from pytdscf_torch.models.radical_pair import (
+        radical_pair_liouvillian,
+        singlet_product_state,
+    )
+    from pytdscf_tpu.util import read_nc
+
+    monkeypatch.chdir(tmp_path)
+    basis, mpo, ele = radical_pair_liouvillian(
+        hfcs_1=[(2, 0.4)], hfcs_2=[(3, 0.5)],
+        B0=B0, J=J, D0=D0, kS=KS, kT=KT, scale=SCALE)
+    model = Model(basis, {"hamiltonian": mpo}, space="liouville", bond_dim=16)
+    model.init_HartreeProduct = [singlet_product_state(basis, ele)]
+    kw = dict(stepsize=DT * units.au_in_fs, conserve_norm=False,
+              integrator="arnoldi", fetch_stride=stride)
+    Simulator("rp", model, verbose=0, device="cpu").propagate(
+        reduced_density=([(ele, ele)], 1), maxstep=NSTEP + 1,
+        autocorr=False, energy=False, norm=False, populations=False, **kw)
+    rd = read_nc("rp_prop/reduced_density.nc", [(ele, ele)])
+    got = np.asarray(rd[(ele, ele)])[: NSTEP + 1]
+    np.testing.assert_allclose(got, _dense_trajectory(), atol=5.0e-07)
+    # the rows of the fused blocks against a stride-1 run's
+    rows = {}
+    for s in (1, stride):
+        kw["fetch_stride"] = s
+        Simulator(f"rows{s}", model, verbose=0, device="cpu").propagate(
+            maxstep=9, autocorr=False, energy=False, **kw)
+        with open(f"rows{s}_prop/populations.dat") as f:
+            rows[s] = f.read()
+    assert len(rows[1].splitlines()) == 10
+    assert rows[stride] == rows[1]

@@ -295,6 +295,40 @@ def test_heff_kernel_layout_matches_plain(b, k, x, r, wl, d, wr):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("forward", [True, False])
+def test_one_pass_transfer_matches_plain(forward):
+    """The one-pass environment transfer (``env_precision="default"``):
+    ``cuda_renorm.renorm_left_lo`` / ``_right_lo`` on the CPU equal their
+    plain versions ``kernels.renorm_block_left_lo`` / ``_right_lo`` bit for
+    bit, and on small integers the staged chain through the kernel's
+    layouts, with MPO widths in and out that differ (7 → 8, the radical
+    pair's), equals them too."""
+    from pytdscf_torch.mps import cuda_renorm as CR
+
+    rng = np.random.default_rng(23)
+    m, d, n, wa, wc = 6, 4, 9, 7, 8  # bonds, physical dim, MPO widths
+    if forward:
+        blk = small_ints(rng, 3, m, wa, m).to(torch.complex64)
+        core = small_ints(rng, 2, m, d, n).to(torch.complex64)
+        W = small_ints(rng, 2, wa, d, d, wc).to(torch.complex64)
+        got = CR.renorm_left_lo(blk, core, W, core)
+        want = TK.renorm_block_left_lo(blk, core, W, core)
+        ops = CM.heff_operands(torch.conj_physical(core).permute(2, 1, 0),
+                               W.permute(1, 3, 0, 2), core.permute(2, 1, 0))
+    else:
+        blk = small_ints(rng, 3, m, wc, m).to(torch.complex64)
+        core = small_ints(rng, 2, n, d, m).to(torch.complex64)
+        W = small_ints(rng, 2, wa, d, d, wc).to(torch.complex64)
+        got = CR.renorm_right_lo(blk, core, W, core)
+        want = TK.renorm_block_right_lo(blk, core, W, core)
+        ops = CM.heff_operands(torch.conj_physical(core), W.permute(1, 0, 3, 2),
+                               core)
+    assert ops.W.shape[2] != ops.j  # din != dout
+    assert float(torch.linalg.vector_norm(want)) > 0
+    assert torch.equal(got, want)
+    assert torch.equal(staged_chain(blk, ops, passes=1), want)
+
+
 def _lossy(name, variant, ops, v):
     """The plain matvec with one bf16 rounding more ("bf16 output") or
     one less ("T1 in float32"): faults REL_CARD must catch."""
@@ -390,6 +424,60 @@ def test_keff_kernel_matches_plain_on_card(cuda, b, k, x, w):
     assert CM.keff_lo.launches == launches + 2
     assert torch.equal(got, again)
     assert _rel(got.cpu(), plain.cpu()) < REL_CARD
+
+
+def _transfer_case(forward, blk, core, W):
+    """One-pass transfer of ``blk`` through ``core`` and ``W``: the kernel's
+    wrapper and the plain version on the same tensors."""
+    from pytdscf_torch.mps import cuda_renorm as CR
+
+    if forward:
+        return (CR.renorm_left_lo(blk, core, W, core),
+                TK.renorm_block_left_lo(blk, core, W, core))
+    return (CR.renorm_right_lo(blk, core, W, core),
+            TK.renorm_block_right_lo(blk, core, W, core))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("m,d,n,wa,wc", [
+    (6, 4, 9, 7, 8),  # small integers: exact in any sum order
+    (1024, 4, 1024, 7, 8),  # the radical pair's bulk, widths in ≠ out
+])
+def test_one_pass_transfer_matches_plain_on_card(cuda, forward, m, d, n, wa,
+                                                 wc):
+    """``renorm_left_lo`` / ``_right_lo`` launch ``chain_tc.cu``'s one-pass
+    chain with din ≠ dout: on small integers bit for bit with the plain
+    version, on random operands at the radical pair's bulk within
+    ``REL_CARD`` (the order of the float32 sums)."""
+    from pytdscf_torch.mps import cuda_renorm as CR
+
+    rng = np.random.default_rng(29)
+    exact = m < 64
+
+    def make(hi, *shape):
+        if exact:
+            return small_ints(rng, hi, *shape).to(cuda, torch.complex64)
+        a = _cx(rng, *shape)
+        return torch.as_tensor(a / np.linalg.norm(a), dtype=torch.complex64,
+                               device=cuda)
+
+    if forward:
+        blk, core = make(3, m, wa, m), make(2, m, d, n)
+    else:
+        blk, core = make(3, m, wc, m), make(2, n, d, m)
+    W = make(2, wa, d, d, wc)
+    launches = CR.renorm_lo.launches
+    got, want = _transfer_case(forward, blk, core, W)
+    again, _ = _transfer_case(forward, blk, core, W)
+    torch.cuda.synchronize()
+    assert CR.renorm_lo.launches == launches + 2
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    assert float(torch.linalg.vector_norm(want)) > 0
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        assert _rel(got.cpu(), want.cpu()) < REL_CARD
 
 
 @pytest.mark.cuda
