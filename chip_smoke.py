@@ -132,7 +132,40 @@ Phases (any failure exits nonzero, before the result line):
    Krylov statistics and launches); then 5 timed replays from the state
    after the capture: its populations within 5e-5 of the gold entry
    ``chi2048_nuc6_split1_lt2_dt1_steps5_complex64``, the launch gates of
-   7c, the peak memory, one more replayed step under the profiler.
+   7c, the peak memory, one more replayed step under the profiler;
+11. the IR-spectrum workflow on H2O (``tests/test_h2o_pipeline.py``: 3
+   modes, 9 primitives, D=9) through the port's entry points:
+   ``Simulator.relax`` (10 improved steps of 0.1 fs, each site's ground
+   state one ``lanczos_gs`` launch), ``operate`` (μ·E, efield 1e-2 each
+   way), ``propagate`` (500 steps of 0.2 fs at the default stride 16:
+   graph replays) from the checkpoints, then the spectrum: the ZPE within
+   1e-6 of 0.0208557166, the bend 1612 ± 90 and stretch 3787 ± 180 cm⁻¹,
+   E_gs below the harmonic ZPE, the norm and ⟨H⟩ over the run, one
+   ground-state launch per site update and no plain call; s/step, the
+   restarts' distribution, busy share (one more step profiled) and peak
+   memory of each stage;
+12. the same workflow for butadiene at ``examples/butadiene_ir_spectrum.py``'s
+   own settings (14 active modes, 6 primitives, D=12; 8 improved steps,
+   operate, 400 steps): E_gs within 1e-6 and ‖μ|0⟩‖ within 1e-4
+   (relative) of the JAX package's gold (``GOLD_C4H6``), E_gs below the
+   harmonic ZPE, the norm within 1e-5 and ⟨H⟩ within 1e-5 over the 400
+   steps, the strongest line in 600-3500 cm⁻¹ within one frequency bin of
+   the gold; then the ground-state kernel against its plain version on
+   the relaxed state's own operands at each of its shapes (edge site on
+   one CTA, M = 36 on 8, the bulk on 16: energies within 1e-6 relative,
+   |⟨kernel|plain⟩| ≥ 1 − 1e-5), the bulk timed beside the plain version
+   and ``torch.linalg.eigh`` of the dense H_eff;
+13. imaginary-time relaxation of butadiene from its Hartree product, 4
+   steps, with the separate kernels and with the fused site kernel: ⟨H⟩
+   non-increasing step by step, the end ⟨H⟩ within 1e-6 of the same steps
+   through the plain versions on the host, the norm;
+14. ``lanczos_expm`` (both signs) and ``site_step`` at that real scale
+   against their plain versions on the bulk site's operands (the
+   criteria of 3a and 4a);
+15. one improved step replayed from a CUDA graph (``propagate_steps``)
+   against the same step driven from the host: ⟨H⟩ equal within 5e-6,
+   the same ground-state telemetry, and the replay's traced launches of
+   ``lanczos_gs`` and ``mgs_qr`` by route equal to the host step's.
 
 Every run of the chain gates the complex64 ⟨H⟩ it reports at 5e-6: the
 engine contracts ⟨H⟩ in complex128 and rounds only the value to
@@ -250,6 +283,47 @@ CHI2048_PEAK_BYTES = 2.0e9
 # version with its lo passes dropped (one bf16 pass) reads 5.5e-4 to
 # 1.4e-2 there and must fail it
 CHAIN_TOL = 2.0e-05
+# the IR-spectrum workflow (relax → operate(μ·E) → propagate → spectrum):
+# H2O as tests/test_h2o_pipeline.py runs it (10 improved steps, 500 steps
+# of 0.2 fs) and its literals: the ZPE (held here in complex64 to 1e-6) and
+# the bend and stretch lines within the test's windows
+H2O_RELAX_STEPS = 10
+H2O_PROP_STEPS = 500
+H2O_ZPE = 0.0208557166
+H2O_ZPE_TOL = 1.0e-06
+H2O_BEND = (1612.0, 90.0)
+H2O_STRETCH = (3787.0, 180.0)
+EFIELD = (1.0e-02, 1.0e-02, 1.0e-02)
+# butadiene at examples/butadiene_ir_spectrum.py's own settings (8 improved
+# steps, operate 10 sweeps, 400 steps of 0.2 fs); its gold from the JAX
+# package on the CPU in complex128 with the example's settings (LAPACK's
+# gauge; the JAX package pinned to its MGS gauge, the port's, reads E_gs
+# 0.06757225533221635 and ‖μ|0⟩‖ 0.0013707910419449817: 1.5e-9 and 5e-6
+# relative away): E_gs, ‖μ|0⟩‖, the strongest line in 600-3500 cm⁻¹ and the
+# frequency grid's spacing
+GOLD_C4H6 = {"e_gs": 0.06757225687261864, "norm": 0.0013707978631834132,
+             "peak": 2956.893669394627, "bin": 209.26223337514966}
+C4H6_RELAX_STEPS = 8
+C4H6_PROP_STEPS = 400
+C4H6_BULK = 6  # a (12, 6, 12) site under the (30, 6, 6, 30) MPO core
+C4H6_E_TOL = 1.0e-06  # E_gs in complex64 against the gold
+C4H6_NORM_RTOL = 1.0e-04  # ‖μ|0⟩‖ in complex64, relative
+# ⟨H⟩ of the propagated μ|0⟩ (complex64, contracted in complex128) over
+# the whole run, last step against the start
+WF_E_DRIFT = 1.0e-05
+# imaginary-time relaxation of butadiene: steps of 0.1 fs from the Hartree
+# product; ⟨H⟩ may not rise by more than the rounding of a complex64 value
+# (0.07 × 6e-8) with margin; the end ⟨H⟩ against the plain route's
+IMAG_STEPS = 4
+IMAG_SLACK = 1.0e-07
+IMAG_TOL = 1.0e-06
+# the Krylov threshold of the real-scale kernel checks (the chain's)
+REAL_SCALE_THRESH = 1.0e-06
+# the ground-state kernel against its plain version: the energy relative,
+# and |⟨kernel|plain⟩| (float32 sums in another order; the 1e-12 restart
+# test sits at rounding, so the pass counts may differ)
+GS_E_RTOL = 1.0e-06
+GS_OVERLAP_TOL = 1.0e-05
 # the launches of the port's kernels in a profiler trace: the kernel's
 # name, the wrapper and route that launch it (the MGS "device" route also
 # launches mgs_qr_kernel; the paths that count by trace never take it, as
@@ -266,7 +340,7 @@ TRACED_KERNELS = {
 # staged GEMMs and their planes kernel (chain_tc.cu, keff_tc.cu), the
 # Krylov control step, MGS, Lanczos, the fused site
 PORT_KERNELS = ("cgemm_kernel", "planes_kernel", "krylov_ctl_kernel",
-                "mgs_qr", "lanczos_expm", "site_step")
+                "mgs_qr", "lanczos_expm", "site_step", "lanczos_gs")
 MARKER = "spin_kernel"  # torch.cuda._sleep
 MARK_CYCLES = 1000
 TRACE_SETTLE_S = 0.5
@@ -397,11 +471,12 @@ def build_engine(device):
 
 
 def site_operands(engine, p: int):
-    """(L, lL), W, (R, lR) and the left block past site p, from the
-    engine's current cores."""
+    """(L, lL), W, (R, lR) and the left block past site p (None at the
+    last site), from the engine's current cores."""
     left = engine.build_left_env_stack()
     right = engine.build_right_env_stack()
-    return left[p], engine.W[p], right[engine.nsite - 1 - p], left[p + 1]
+    past = left[p + 1] if p + 1 < len(left) else None
+    return left[p], engine.W[p], right[engine.nsite - 1 - p], past
 
 
 def check_lanczos(engine, dt_au, results):
@@ -772,10 +847,13 @@ def launch_record() -> dict:
     from pytdscf_torch.mps import cuda_site as CS
 
     return {"lanczos_expm": 0, "mgs_qr": 0, "site_step": 0,
+            "lanczos_gs": 0,
             "lanczos_expm_routes": dict.fromkeys(CL.ROUTES, 0),
             "lanczos_expm_sizes": {},
             "mgs_qr_routes": dict.fromkeys(CQ.ROUTES, 0),
-            "site_step_routes": dict.fromkeys(CS.ROUTES, 0)}
+            "site_step_routes": dict.fromkeys(CS.ROUTES, 0),
+            "lanczos_gs_routes": dict.fromkeys(CL.ROUTES, 0),
+            "lanczos_gs_sizes": {}}
 
 
 def traced_launches(prof) -> dict:
@@ -802,6 +880,17 @@ def traced_launches(prof) -> dict:
         if any(k in name for k in PORT_KERNELS):
             ends = [min(ends[0], float(e["ts"])), max(ends[1], float(e["ts"]))]
             out["by_name"][name] = out["by_name"].get(name, 0) + 1
+        if "lanczos_gs_kernel(" in name:
+            # one kernel for both routes: the one-block route is a
+            # cluster of one CTA
+            ends = [min(ends[0], float(e["ts"])), max(ends[1], float(e["ts"]))]
+            size = int(e["args"]["grid"][0])
+            way = "block" if size == 1 else "cluster"
+            out["lanczos_gs"] += 1
+            out["lanczos_gs_routes"][way] += 1
+            if way == "cluster":
+                sizes = out["lanczos_gs_sizes"]
+                sizes[size] = sizes.get(size, 0) + 1
         for short, (kernel, way) in TRACED_KERNELS.items():
             if short + "(" in name:
                 ends = [min(ends[0], float(e["ts"])),
@@ -832,7 +921,12 @@ def counted_launches() -> dict:
                                    CL.lanczos_expm.cluster_launches.items()
                                    if v},
             "mgs_qr_routes": dict(CQ.mgs_qr.route_launches),
-            "site_step_routes": dict(CS.site_step_fused.route_launches)}
+            "site_step_routes": dict(CS.site_step_fused.route_launches),
+            "lanczos_gs": CL.ground_state.launches,
+            "lanczos_gs_routes": dict(CL.ground_state.route_launches),
+            "lanczos_gs_sizes": {k: v for k, v in
+                                 CL.ground_state.cluster_launches.items()
+                                 if v}}
 
 
 def scaled(rec: dict, num: int, den: int = 1) -> dict:
@@ -851,15 +945,17 @@ def launch_text(rec: dict) -> str:
             f"{rec['lanczos_expm_routes']} by size "
             f"{rec['lanczos_expm_sizes']}, qr {rec['mgs_qr']} by route "
             f"{rec['mgs_qr_routes']}, site_step {rec['site_step']} by route "
-            f"{rec['site_step_routes']}")
+            f"{rec['site_step_routes']}, lanczos_gs {rec['lanczos_gs']} by "
+            f"route {rec['lanczos_gs_routes']} by size "
+            f"{rec['lanczos_gs_sizes']}")
 
 
 def path_launches(rec: dict) -> dict:
     """A main path's entries for the ``kernels`` line, from a launch
     record: (launches, error) per kernel and the by-route tallies."""
     out = {k: v for k, v in rec.items() if k.endswith(("_routes", "_sizes"))}
-    for name in ("lanczos_expm", "mgs_qr", "site_step"):
-        if rec[name]:
+    for name in ("lanczos_expm", "mgs_qr", "site_step", "lanczos_gs"):
+        if rec.get(name):
             out[name] = (rec[name], None)
     return out
 
@@ -877,7 +973,7 @@ def counters() -> dict:
             "heff_lo": CM.heff_lo, "keff_lo": CM.keff_lo,
             "renorm_hi": CR.renorm_hi, "renorm_lo": CR.renorm_lo,
             "matvec_hi": CR.matvec_hi, "site_step": CS.site_step_fused,
-            "krylov_ctl": CK.krylov_ctl}
+            "krylov_ctl": CK.krylov_ctl, "lanczos_gs": CL.ground_state}
 
 
 def reset_counts() -> None:
@@ -1330,6 +1426,17 @@ def chain_model():
     return model
 
 
+def dat_rows(path: str) -> tuple[list, np.ndarray]:
+    """The rows of a Simulator ``.dat`` file, as lines and as numbers (a
+    complex column as its real and imaginary parts)."""
+    with open(path) as fh:
+        lines = [ln for ln in fh if not ln.startswith("#")]
+    return lines, np.asarray(
+        [[x for tok in ln.split() for c in [complex(tok)]
+          for x in ((c.real, c.imag) if "j" in tok else (c.real,))]
+         for ln in lines])
+
+
 def run_simulator(model, stride, fused: bool, steps: int):
     """``Simulator.propagate`` of the chain over ``steps`` steps of 0.2
     fs (thresh_sil 1e-6) at ``fetch_stride=stride`` (None: the default),
@@ -1367,13 +1474,8 @@ def run_simulator(model, stride, fused: bool, steps: int):
                 lz_sizes=dict(CL.lanczos_expm.cluster_launches),
                 launches=counted_launches(), rows={}, values={})
             for name in ("autocorr", "populations"):
-                with open(os.path.join("chip_sf_prop", f"{name}.dat")) as fh:
-                    lines = [ln for ln in fh if not ln.startswith("#")]
-                run.rows[name] = lines
-                run.values[name] = np.asarray(
-                    [[x for tok in ln.split() for c in [complex(tok)]
-                      for x in ((c.real, c.imag) if "j" in tok else (c.real,))]
-                     for ln in lines])
+                run.rows[name], run.values[name] = dat_rows(
+                    os.path.join("chip_sf_prop", f"{name}.dat"))
     finally:
         os.chdir(cwd)
         if switch is None:
@@ -2490,6 +2592,554 @@ def phase_anchor() -> dict:
             "mgs_qr_routes": routes}
 
 
+# ------------------------------------------------------------------------
+# relax → operate(μ) → propagate → spectrum (ROADMAP A7, one state)
+
+
+def ir_models(name: str):
+    """(basinfo, H model, μ·E model, harmonic ZPE) of a workflow: the H2O
+    surface of ``tests/test_h2o_pipeline.py`` (3 modes, 9 primitives, D=9)
+    or ``examples/butadiene_ir_spectrum.py``'s C4H6 local-mode surface (14
+    active modes, 6 primitives, D=12), μ at efield (1e-2, 1e-2, 1e-2)."""
+    from pytdscf_torch import units
+    from pytdscf_torch.basis.ho import PrimBas_HO
+    from pytdscf_torch.model import BasInfo, Model
+    from pytdscf_torch.operators.sop import read_potential_nMR
+    from pytdscf_torch.potentials import h2o_k_orig, h2o_mu, load
+
+    if name == "h2o":
+        k_orig, mu, modes, nprim, bond = h2o_k_orig, h2o_mu, [1, 2, 3], 9, 9
+        active = None
+    else:
+        k_orig = load("c4h6_local_potential")["k_orig"]
+        mu = load("c4h6_local_dipole")["mu"]
+        modes = sorted({i for key in k_orig for i in key})
+        nprim, bond, active = 6, 12, modes
+    prim = [[PrimBas_HO(0.0, math.sqrt(k_orig[(m, m)]) * units.au_in_cm1,
+                        nprim) for m in modes]]
+    basinfo = BasInfo(prim)
+    model = Model(basinfo, {"hamiltonian": read_potential_nMR(k_orig)},
+                  bond_dim=bond)
+    mu_ham = read_potential_nMR(None, dipole_emu=mu, efield=EFIELD,
+                                active_modes=active)
+    model_mu = Model(basinfo, {"hamiltonian": mu_ham}, bond_dim=bond)
+    zpe = sum(math.sqrt(k_orig[(m, m)]) for m in modes) / 2
+    return model, model_mu, zpe
+
+
+def workflow_counts() -> dict:
+    """The launches of the workflow's kernels since the last reset, by
+    kernel, route and cluster size, and the plain-version calls."""
+    return {**counted_launches(), "plain": plain_calls()}
+
+
+def fs(t: float) -> float:
+    """``t`` fs in atomic units of time."""
+    from pytdscf_torch import units
+
+    return t / units.au_in_fs
+
+
+def timed_phase(tag: str, run):
+    """``run()`` from zeroed counts, the peak memory reset: (its result,
+    wall seconds, the counts after it, the peak bytes above what was
+    allocated before it)."""
+    import torch
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = workflow_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    require(n["plain"] == 0, f"{tag}: {n['plain']} plain-version calls")
+    log(f"{tag}: {wall:.3f} s, peak {peak / 2**20:.1f} MiB above the "
+        f"{base / 2**20:.1f} MiB allocated before; launches "
+        f"lanczos_gs {n['lanczos_gs']} by route {n['lanczos_gs_routes']} by "
+        f"size {n['lanczos_gs_sizes']}, lanczos_expm {n['lanczos_expm']}, "
+        f"site_step {n['site_step']}, mgs_qr {n['mgs_qr']}")
+    return out, wall, n, peak
+
+
+def passes_text(stats: dict) -> str:
+    hist = {k: v for k, v in enumerate(stats["passes_hist"]) if v}
+    calls = stats["calls"]
+    return (f"{calls} ground states: passes {hist} (mean "
+            f"{stats['passes'] / max(calls, 1):.2f}), "
+            f"{stats['iterations']} Lanczos iterations, "
+            f"{stats['breakdowns']} breakdowns")
+
+
+def spectrum_peaks(job: str, e_gs: float, windows) -> list:
+    """The strongest line in each (lo, hi) cm⁻¹ window of the spectrum of
+    ``{job}_prop/autocorr.dat``, and the frequency grid's spacing."""
+    from pytdscf_torch import spectra, units
+
+    t_fs, ac = spectra.load_autocorr(f"{job}_prop/autocorr.dat")
+    freq, inten = spectra.ifft_autocorr(t_fs, ac,
+                                        E_shift=e_gs * units.au_in_eV)
+    out = []
+    for lo, hi in windows:
+        sel = (freq > lo) & (freq < hi)
+        out.append(float(freq[sel][np.argmax(inten[sel])]))
+    return out, float(abs(freq[1] - freq[0]))
+
+
+def phase_workflow(name: str, relax_steps: int, prop_steps: int) -> tuple:
+    """The IR-spectrum workflow through the port's entry points on the
+    card: ``Simulator.relax`` (improved, 0.1 fs), ``operate`` (μ·E, up to
+    10 sweeps), ``propagate`` (0.2 fs, the card's default ``fetch_stride``
+    16: graph replays) from the checkpoints the steps before wrote, then
+    the spectrum (``spectra.ifft_autocorr``, E_shift = E_gs), then the
+    propagate stage again under the profiler, whose traced launches count
+    for it (equal to the counters' accounting of its replays, its
+    autocorrelation within ROW_TOL of the first run's).  Gates: E_gs
+    below the harmonic ZPE, the norm within NORM_TOL over the run, ⟨H⟩
+    conserved to WF_E_DRIFT, no plain call, the ground-state kernel
+    launched at every relax site, and the model's literals (H2O: the ZPE
+    and both peaks of ``tests/test_h2o_pipeline.py``; C4H6: the JAX
+    package's gold, ``GOLD_C4H6``).  Returns (the kernels' launches over
+    the three stages: relax and operate as counted, propagate as traced;
+    the relaxed engine, the Hamiltonian model)."""
+    import torch
+
+    from pytdscf_torch import Simulator
+    from pytdscf_torch.config import Config
+    from pytdscf_torch.mps.tdvp import TDVPEngine
+    from pytdscf_torch.checkpoint import load_wavefunction
+
+    tag = f"workflow {name}"
+    model, model_mu, zpe = ir_models(name)
+    cwd = os.getcwd()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            (e_gs, wf), wall, n, peak = timed_phase(
+                f"{tag}: relax ({relax_steps} improved steps)",
+                lambda: Simulator(name, model, verbose=0).relax(
+                    maxstep=relax_steps, stepsize=0.1, improved=True))
+            gs_engine = wf.engine
+            stats = gs_engine.ground_state_stats()
+            log(f"{tag}: relax {wall / relax_steps:.4f} s/step; "
+                f"{passes_text(stats)}")
+            nsite = gs_engine.nsite
+            require(n["lanczos_gs"] == 2 * nsite * relax_steps
+                    == stats["calls"],
+                    f"{tag}: {n['lanczos_gs']} ground-state launches, "
+                    f"{stats['calls']} counted on the device, for "
+                    f"{2 * nsite * relax_steps} site updates")
+            require(n["lanczos_expm"] == 0 and n["site_step"] == 0,
+                    f"{tag}: an exponential ran in improved relaxation")
+            log(f"{tag}: E_gs {e_gs!r} Eh; harmonic ZPE {zpe!r}")
+            require(e_gs < zpe, f"{tag}: E_gs {e_gs} not below the "
+                    f"harmonic ZPE {zpe}")
+            _add_counts(total, n)
+            busy = profile_run(lambda: gs_engine.propagate(fs(0.1)))
+            log(f"{tag}: one more improved step keeps the device "
+                f"{100 * busy:.1f} % busy")
+            (norm, _), wall_op, n, _ = timed_phase(
+                f"{tag}: operate", lambda: Simulator(
+                    name, model_mu, verbose=0).operate(
+                        maxstep=10, restart=True, loadfile_ext="_gs"))
+            log(f"{tag}: ‖μ|0⟩‖ {norm!r}")
+            _add_counts(total, n)
+            start = load_wavefunction(f"wf_{name}_operate.pkl")["cores"]
+            e0 = TDVPEngine(start, model.hamiltonian,
+                            Config(dtype="complex64"), "cuda"
+                            ).expectation().real
+            sim = Simulator(name, model, verbose=0)
+            (e_end, pwf), wall_p, n_prop, peak_p = timed_phase(
+                f"{tag}: propagate ({prop_steps} steps, stride 16)",
+                lambda: sim.propagate(maxstep=prop_steps, stepsize=0.2,
+                                      restart=True,
+                                      loadfile_ext="_operate"))
+            _, first = dat_rows(f"{name}_prop/autocorr.dat")
+            eng = pwf.engine
+            log(f"{tag}: propagate {wall_p / prop_steps:.4f} s/step "
+                f"(graph steps {eng.graph_steps}, host steps "
+                f"{eng.eager_steps}; sweep {sim.diagnostics.report()})")
+            require(eng.graph_steps > prop_steps // 2,
+                    f"{tag}: {eng.graph_steps} replayed steps")
+            pops = np.loadtxt(f"{name}_prop/populations.dat")[:, 1]
+            drift_n = float(np.max(np.abs(pops - 1.0)))
+            drift_e = abs(e_end - e0)
+            log(f"{tag}: ⟨H⟩ {e0!r} at the start, {e_end!r} at the last "
+                f"step (drift {drift_e:.3e}); max |norm² − 1| {drift_n:.3e} "
+                f"over {len(pops)} rows")
+            require(drift_n < NORM_TOL and drift_e < WF_E_DRIFT,
+                    f"{tag}: norm² drift {drift_n:.3e} (bar {NORM_TOL}), "
+                    f"⟨H⟩ drift {drift_e:.3e} (bar {WF_E_DRIFT})")
+            busy = profile_run(lambda: eng.propagate_steps(fs(0.2), 4))
+            log(f"{tag}: 4 replayed steps keep the device "
+                f"{100 * busy:.1f} % busy")
+            if name == "h2o":
+                (bend, stretch), res = spectrum_peaks(
+                    name, e_gs, [(1000, 3000), (3000, 4100)])
+                log(f"{tag}: ZPE {e_gs!r} (literal {H2O_ZPE}, "
+                    f"|Δ| {abs(e_gs - H2O_ZPE):.3e}, bar {H2O_ZPE_TOL}); "
+                    f"bend {bend:.1f}, stretch {stretch:.1f} cm⁻¹ "
+                    f"(grid {res:.1f})")
+                require(abs(e_gs - H2O_ZPE) <= H2O_ZPE_TOL,
+                        f"{tag}: ZPE {e_gs} vs {H2O_ZPE}")
+                require(abs(bend - H2O_BEND[0]) <= H2O_BEND[1]
+                        and abs(stretch - H2O_STRETCH[0]) <= H2O_STRETCH[1],
+                        f"{tag}: peaks {bend}, {stretch}")
+            else:
+                (peak_f,), res = spectrum_peaks(name, e_gs, [(600, 3500)])
+                gold = GOLD_C4H6
+                log(f"{tag}: E_gs |Δ| {abs(e_gs - gold['e_gs']):.3e} from "
+                    f"gold (bar {C4H6_E_TOL}); ‖μ|0⟩‖ relative |Δ| "
+                    f"{abs(norm / gold['norm'] - 1):.3e} (bar "
+                    f"{C4H6_NORM_RTOL}); strongest line {peak_f:.2f} cm⁻¹ "
+                    f"(gold {gold['peak']:.2f}, grid {res:.2f})")
+                require(abs(e_gs - gold["e_gs"]) <= C4H6_E_TOL,
+                        f"{tag}: E_gs {e_gs} vs gold {gold['e_gs']}")
+                require(abs(norm / gold["norm"] - 1) <= C4H6_NORM_RTOL,
+                        f"{tag}: ‖μ|0⟩‖ {norm} vs gold {gold['norm']}")
+                require(abs(peak_f - gold["peak"]) <= gold["bin"] * 1.0001,
+                        f"{tag}: strongest line {peak_f} vs gold "
+                        f"{gold['peak']} (one bin {gold['bin']})")
+            # ---- the propagate stage again under the profiler: its
+            # launches as the card ran them (one host step, then replays),
+            # which the counters only account for (a replay adds what the
+            # captured step added); the path's launches come from the trace
+            box = []
+            busy, seen = profile_run(lambda: (reset_counts(), box.append(
+                Simulator(name, model, verbose=0).propagate(
+                    maxstep=prop_steps, stepsize=0.2, restart=True,
+                    loadfile_ext="_operate"))), count=True)
+            counted = counted_launches()
+            _, again = dat_rows(f"{name}_prop/autocorr.dat")
+            gap = float(np.max(np.abs(again - first)))
+            log(f"{tag}: propagate again under the profiler keeps the device "
+                f"{100 * busy:.1f} % busy; graph steps "
+                f"{box[-1][1].engine.graph_steps}; autocorrelation within "
+                f"{gap:.2e} of the first run's")
+            require(scaled(seen, 1) == counted,
+                    f"{tag}: propagate traced {launch_text(seen)} != counted "
+                    f"{launch_text(counted)}")
+            require(counted == {k: v for k, v in n_prop.items()
+                                if k != "plain"},
+                    f"{tag}: propagate counted {launch_text(counted)} != the "
+                    f"first run's {launch_text(n_prop)}")
+            require(gap <= ROW_TOL, f"{tag}: the traced propagate's "
+                    f"autocorrelation {gap:.2e} from the first run's")
+            _add_counts(total, scaled(seen, 1))
+            log(f"{tag}: relax {wall:.2f} s, operate {wall_op:.2f} s, "
+                f"propagate {wall_p:.2f} s; peak memory relax "
+                f"{peak / 2**20:.1f} MiB, propagate {peak_p / 2**20:.1f} MiB")
+        finally:
+            os.chdir(cwd)
+    return total, gs_engine, model
+
+
+def _add_counts(total: dict, n: dict) -> None:
+    for key, value in n.items():
+        if isinstance(value, dict):
+            sub = total.setdefault(key, {})
+            for k, v in value.items():
+                sub[k] = sub.get(k, 0) + v
+        else:
+            total[key] = total.get(key, 0) + value
+
+
+def workflow_path(total: dict) -> dict:
+    """A workflow's entries for the ``kernels`` line."""
+    return path_launches({k: v for k, v in total.items() if k != "plain"})
+
+
+def phase_imaginary(model) -> dict:
+    """Imaginary-time relaxation of butadiene from its Hartree product
+    (``Config.relax="imaginary"``: scale −dt/2 real, norm restored after
+    every exponential; the relax defaults thresh 1e-9, max_krylov 20), with
+    the separate kernels and with the fused site kernel: ⟨H⟩ non-increasing
+    step by step (to IMAG_SLACK), the norm 1, the end ⟨H⟩ within IMAG_TOL
+    of the same steps through the plain versions (complex64 on the host);
+    then ``lanczos_expm`` and ``site_step`` at that real scale against
+    their plain versions on the bulk site's operands."""
+    import torch
+
+    from pytdscf_torch import Simulator
+    from pytdscf_torch.config import Config
+    from pytdscf_torch.mps.tdvp import TDVPEngine
+
+    dt = fs(0.1)
+    cores = Simulator("c4h6", model, verbose=0)._alloc_initial_cores()
+    plain = TDVPEngine(cores, model.hamiltonian,
+                       Config(relax="imaginary", dtype="complex64",
+                              fused_site=False), "cpu")
+    for _ in range(IMAG_STEPS):
+        plain.propagate(dt)
+    e_plain = plain.expectation().real
+    out, engines = {}, {}
+    for fused in (False, True):
+        tag = f"imaginary c4h6 ({'fused site' if fused else 'separate'})"
+        engine = TDVPEngine(cores, model.hamiltonian,
+                            Config(relax="imaginary", dtype="complex64",
+                                   fused_site=fused), "cuda")
+        energies = [engine.expectation().real]
+
+        def run(engine=engine, energies=energies):
+            for _ in range(IMAG_STEPS):
+                engine.propagate(dt)
+                energies.append(engine.expectation().real)
+
+        _, wall, n, peak = timed_phase(tag, run)
+        steps = np.diff(energies)
+        log(f"{tag}: {wall / IMAG_STEPS:.4f} s/step; ⟨H⟩ {energies}; end "
+            f"|Δ| from the plain route {abs(energies[-1] - e_plain):.3e}; "
+            f"norm {engine.norm():.7f}")
+        require(bool(np.all(steps <= IMAG_SLACK)),
+                f"{tag}: ⟨H⟩ rose in a step: {steps}")
+        require(abs(energies[-1] - e_plain) <= IMAG_TOL,
+                f"{tag}: end ⟨H⟩ {energies[-1]} vs plain {e_plain}")
+        require(abs(engine.norm() - 1.0) < NORM_TOL, f"{tag}: norm")
+        require(n["lanczos_expm"] > 0 and (n["site_step"] > 0) == fused,
+                f"{tag}: launches {n}")
+        busy = profile_run(lambda: engine.propagate(dt))
+        log(f"{tag}: one more step keeps the device {100 * busy:.1f} % busy")
+        _add_counts(out, n)
+        engines[fused] = engine
+    return out, engines[False], dt
+
+
+def check_real_scale(engine, dt) -> tuple[float, float]:
+    """``lanczos_expm`` and ``site_step`` at the real scale −dt/2 (and the
+    K step's +dt/2) against their plain versions on the imaginary-time
+    run's bulk site, its centre moved there: the plain version's status,
+    ‖Δψ‖ < LANCZOS_TOL, a second launch bit-identical (the site kernel by
+    check_site_once).  At the chain's thresh_exp, REAL_SCALE_THRESH: the
+    relax default 1e-9 lies below the float32 rounding of ‖ψ_k − ψ_k−1‖,
+    where two summation orders take the stop at different k (the fused
+    site's K step stopped at 7 against the plain version's 8).  Returns
+    the largest errors of each kernel."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_lanczos as CL
+    from pytdscf_torch.mps import cuda_site as CS
+
+    p = C4H6_BULK
+    (L, lL), W, (R, lR), psi, nxt = centred_operands(engine, p)
+    l, d, r = psi.shape
+    scale = complex(-0.5 * dt)
+    cfg = engine.config.replace(thresh_exp=REAL_SCALE_THRESH)
+    worst = 0.0
+    ch = CL.heff_channels(L, W, R, torch.exp(lL + lR))
+    v = psi.reshape(l * d, r)
+    for sc, tag in ((scale, "H step"), (-scale, "the sign of the K step")):
+        got, st = CL.lanczos_expm(ch, v, sc, cfg.thresh_exp, cfg.max_krylov,
+                                  True)
+        again, _ = CL.lanczos_expm(ch, v, sc, cfg.thresh_exp,
+                                   cfg.max_krylov, True)
+        want, st_p = CL.lanczos_expm_plain(*ch, v, sc, cfg.thresh_exp,
+                                           min(cfg.max_krylov, l * d * r),
+                                           True)
+        err = float(torch.linalg.vector_norm(got - want))
+        log(f"real scale {sc.real:+.4f}: lanczos_expm ({l * d}, {r}) "
+            f"{tag}: status {st.tolist()} vs plain {st_p.tolist()}, "
+            f"‖Δψ‖ {err:.3e}, norm {float(torch.linalg.vector_norm(got)):.7f}")
+        require(st.tolist() == st_p.tolist() and err < LANCZOS_TOL
+                and torch.equal(got, again),
+                f"real-scale lanczos_expm {tag}: ‖Δψ‖ {err:.3e}")
+        worst = max(worst, err)
+    args = (psi, nxt, L, W, R, scale, cfg.thresh_exp, lL, lR)
+    kw = dict(forward=True, max_dim=cfg.max_krylov, conserve=True)
+    if CS.site_fits(psi.shape, W.shape, nxt.shape, cfg.max_krylov):
+        want = CS.site_step_fused_plain(*args, **kw)
+        errs, line = check_site_once("real-scale site_step (bulk, forward)",
+                                     args, kw, want, {})
+        log(line)
+    else:
+        raise SmokeFailure("the fused site kernel does not take the bulk "
+                           "site of butadiene")
+    return worst, max(errs)
+
+
+def centred_operands(engine, p: int):
+    """``site_operands`` of site p with the state's centre moved there
+    (``qr_right`` over sites 0..p−1 of a copy of the cores), so that H_eff
+    is the Hamiltonian projected on the site's space and ψ the centre:
+    ((L, lL), W, (R, lR), ψ, the next core or None at the last site)."""
+    from pytdscf_torch.mps import kernels as K
+
+    cores = [c.clone() for c in engine.cores[0]]
+    for q in range(p):
+        a, sig = K.qr_right(cores[q])
+        cores[q] = a
+        cores[q + 1] = K.absorb_right(sig, cores[q + 1])
+    saved = engine.cores[0]
+    engine.cores[0] = cores
+    try:
+        left, W, right, _ = site_operands(engine, p)
+    finally:
+        engine.cores[0] = saved
+    nxt = cores[p + 1].contiguous() if p + 1 < len(cores) else None
+    return left, W, right, cores[p].contiguous(), nxt
+
+
+def dense_heff(ch):
+    """The dense H_eff (M·r)² of the channels: H[(i,a),(j,b)] = Σ_c
+    H_c[i,j] Rt_c[b,a]."""
+    import torch
+
+    H, Rt = ch
+    nc, M, _ = H.shape
+    r = Rt.shape[1]
+    return torch.einsum("cij,cba->iajb", H, Rt).reshape(M * r, M * r)
+
+
+def check_ground_state(engines, times) -> float:
+    """The ground-state kernel against its plain version at every shape
+    that the relax stages launched it at: each site of each relaxed state
+    in ``engines`` ({model: engine}), its centre moved there, one check
+    per distinct (M, r, channels), which also fixes the route and cluster
+    size (``gs_plan``).  Gates at each: energies within GS_E_RTOL
+    (relative), |⟨kernel|plain⟩| ≥ 1 − GS_OVERLAP_TOL (the Ritz vectors
+    may differ in phase; their pass counts at the rounding level of the
+    1e-12 test), the unit norm, a second launch bit-identical.  The
+    butadiene bulk is timed beside the plain version and
+    ``torch.linalg.eigh`` of the dense H_eff (the same lowest
+    eigenvector), with its bound: the run's matvecs at the fp32 peak."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_lanczos as CL
+
+    worst, seen = 0.0, set()
+    for name, engine in engines.items():
+        for p in range(engine.nsite):
+            (L, lL), W, (R, lR), psi, _ = centred_operands(engine, p)
+            l, d, r = psi.shape
+            M, nc = l * d, W.shape[-1]
+            bulk = name == "c4h6" and p == C4H6_BULK
+            if (M, r, nc) in seen and not bulk:
+                continue
+            seen.add((M, r, nc))
+            ch = CL.heff_channels(L, W, R, torch.exp(lL + lR))
+            v = psi.reshape(M, r).contiguous()
+            got, st = CL.ground_state(ch, v)
+            again, _ = CL.ground_state(ch, v)
+            want, st_p = CL.ground_state_plain(*ch, v)
+            torch.cuda.synchronize()
+
+            def energy(x, ch=ch):
+                return torch.vdot(x.reshape(-1),
+                                  CL._matvec(*ch, x).reshape(-1)).real.item()
+
+            ek, ep = energy(got), energy(want)
+            ov = abs(torch.vdot(got.reshape(-1), want.reshape(-1)).item())
+            nrm = float(torch.linalg.vector_norm(got))
+            way, size = CL.gs_plan(M, r, nc)[:2]
+            log(f"ground state {name} site {p} ({M}, {r}), {nc} channels, "
+                f"{way} of {size}: E {ek!r} vs plain {ep!r} (rel "
+                f"{abs(ek - ep) / abs(ep):.3e}), |⟨k|p⟩| {ov:.9f}, norm "
+                f"{nrm:.7f}; status {st.tolist()} vs plain {st_p.tolist()}")
+            require(abs(ek - ep) <= GS_E_RTOL * abs(ep)
+                    and ov >= 1 - GS_OVERLAP_TOL and abs(nrm - 1) < NORM_TOL
+                    and torch.equal(got, again),
+                    f"ground state {name} site {p}: E {ek} vs {ep}, "
+                    f"overlap {ov}, norm {nrm}")
+            worst = max(worst, abs(ek - ep) / abs(ep))
+            if not bulk:
+                continue
+            passes, iters, _ = st.tolist()
+            matvecs = iters + passes
+            flops = matvecs * 8.0 * nc * (M * M * r + M * r * r)
+            ms = cuda_ms(lambda: CL.ground_state(ch, v), 5)
+            plain_ms = cuda_ms(lambda: CL.ground_state_plain(*ch, v), 1)
+            D = dense_heff(ch)
+            lib_ms = cuda_ms(lambda: torch.linalg.eigh(D), 3)
+            lam, vec = torch.linalg.eigh(D)
+            log(f"ground state bulk: kernel {ms:.4f} ms ({passes} passes, "
+                f"{iters} iterations), plain {plain_ms:.4f} ms, "
+                f"torch.linalg.eigh of the dense ({M * r})² H_eff "
+                f"{lib_ms:.4f} ms (lowest {lam[0].item()!r} vs the kernel's "
+                f"{ek!r}); {flops / 1e6:.1f} MFLOP")
+            times["lanczos_gs"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                **bound(flops, PEAK_FP32, nbytes(*ch, v, got)),
+                "passes": passes, "iterations": iters,
+                "shape": [M, r, nc], "route": way, "cluster_ctas": size}
+    log(f"ground state: {len(seen)} shapes checked, {sorted(seen)}")
+    return worst
+
+
+def phase_improved_replay(gs_engine, model) -> dict:
+    """One improved-relaxation step replayed from a CUDA graph against the
+    same step driven from the host (``TDVPEngine.propagate_steps``: a host
+    step and the capture, then the replay; the host engine: two
+    ``propagate`` steps from the same state): ⟨H⟩ equal to complex64
+    tolerance, the ground states' pass telemetry equal, and the replayed
+    step's traced launches (by kernel and route) equal to the host step's
+    counted ones."""
+    import torch
+
+    from pytdscf_torch.config import Config
+    from pytdscf_torch.mps.tdvp import TDVPEngine
+
+    dt = fs(0.1)
+    cores = [[c.cpu().numpy() for c in gs_engine.cores[0]]]
+    cfg = Config(relax="improved", dtype="complex64")
+    host = TDVPEngine(cores, model.hamiltonian, cfg, "cuda")
+    graph = TDVPEngine(cores, model.hamiltonian, cfg, "cuda")
+    require(graph.capturable(), "improved relaxation of butadiene is not "
+            "capturable: a site is past gs_fits")
+    host.propagate(dt)
+    graph.propagate_steps(dt, 1)
+    host.ground_state_stats()
+    graph.ground_state_stats()
+    reset_counts()
+    host.propagate(dt)
+    torch.cuda.synchronize()
+    want = counted_launches()
+    _, seen = profile_run(lambda: graph.propagate_steps(dt, 1), count=True)
+    e_h, e_g = host.expectation().real, graph.expectation().real
+    s_h, s_g = host.ground_state_stats(), graph.ground_state_stats()
+    log(f"improved replay: graph steps {graph.graph_steps}; ⟨H⟩ host "
+        f"{e_h!r}, replay {e_g!r} (|Δ| {abs(e_h - e_g):.3e}); passes host "
+        f"{s_h['passes']}, replay {s_g['passes']}; launches host "
+        f"{launch_text(want)}; replay traced {launch_text(seen)}")
+    require(graph.graph_steps == 1, "improved replay: no replayed step")
+    require(abs(e_h - e_g) <= E_TOL, "improved replay: ⟨H⟩ differs")
+    require(s_h["calls"] == s_g["calls"] == 2 * graph.nsite,
+            f"improved replay: {s_g['calls']} ground states")
+    for key in ("lanczos_gs", "lanczos_gs_routes", "mgs_qr", "mgs_qr_routes"):
+        require(seen[key] == want[key],
+                f"improved replay: {key} traced {seen[key]} vs host "
+                f"{want[key]}")
+    return {"lanczos_gs": (seen["lanczos_gs"], None),
+            "lanczos_gs_routes": seen["lanczos_gs_routes"]}
+
+
+def phase_relax_operate(times) -> list:
+    """Phases 11-15: the IR-spectrum workflow on H2O and on butadiene at
+    full settings, imaginary-time relaxation in both site modes, the
+    kernel checks at a real scale and of the ground state, one replayed
+    improved step."""
+    import torch
+
+    paths = []
+    h2o, h2o_engine, _ = phase_workflow("h2o", H2O_RELAX_STEPS,
+                                        H2O_PROP_STEPS)
+    paths.append(workflow_path(h2o))
+    torch.cuda.empty_cache()
+    c4h6, gs_engine, model = phase_workflow("c4h6", C4H6_RELAX_STEPS,
+                                            C4H6_PROP_STEPS)
+    paths.append(workflow_path(c4h6))
+    err_gs = check_ground_state({"h2o": h2o_engine, "c4h6": gs_engine}, times)
+    paths.append({"lanczos_gs": (0, err_gs)})
+    imag, imag_engine, dt = phase_imaginary(model)
+    paths.append(workflow_path(imag))
+    err_lz, err_site = check_real_scale(imag_engine, dt)
+    paths += [{"lanczos_expm": (0, err_lz)}, {"site_step": (0, err_site)}]
+    paths.append(phase_improved_replay(gs_engine, model))
+    return paths
+
+
 KERNELS = [
     ("lanczos_expm", "pytdscf_torch/csrc/lanczos_expm.cu",
      "pytdscf_tpu/mps/pallas_lanczos.py:296"),
@@ -2512,6 +3162,11 @@ KERNELS = [
     # while_loop (the Lanczos one is at :228)
     ("krylov_ctl", "pytdscf_torch/csrc/krylov_ctl.cu",
      "pytdscf_tpu/mps/integrator.py:322"),
+    # no pl.pallas_call: improved relaxation's restarted Lanczos, the JAX
+    # package's _ground_state_multi (XLA while_loop and eigh) over
+    # lanczos_ground_state (integrator.py:552)
+    ("lanczos_gs", "pytdscf_torch/csrc/lanczos_gs.cu",
+     "pytdscf_tpu/mps/tdvp.py:176"),
 ]
 
 
@@ -2550,6 +3205,8 @@ def main() -> int:
     paths.append(phase_rp_simulator())
     torch.cuda.empty_cache()
     paths.append(phase_anchor())
+    torch.cuda.empty_cache()
+    paths += phase_relax_operate(times)
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -2565,6 +3222,12 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     # launches by route, summed over the main paths
+    gs = kernels[[k["name"] for k in kernels].index("lanczos_gs")]
+    gs["launches_by_route"] = {
+        way: sum(path.get("lanczos_gs_routes", {}).get(way, 0)
+                 for path in paths) for way in ("block", "cluster")}
+    gs["bulk"] = {key: times["lanczos_gs"][key] for key in (
+        "passes", "iterations", "shape", "route", "cluster_ctas")}
     for name in ("lanczos_expm", "site_step"):
         entry = kernels[[k["name"] for k in kernels].index(name)]
         entry["launches_by_route"] = {

@@ -69,6 +69,11 @@ SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
+    # device, H, Rt, v, out, status, scratch, nc, M, r, kmax, the cluster
+    # size C (1: the one-block route), resident, stream
+    "pytdscf_lanczos_gs_c64": [
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ],
     # device, H, Rt, psi, next, logs, site_out, psi_next, blocks, log_new,
     # status, scratch, nc, M, r, P2, kmaxH, kmaxK, scale_re, scale_im,
     # thresh, conserve, stream

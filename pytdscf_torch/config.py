@@ -24,10 +24,17 @@ class Config:
 
     #: Job name; output directory of a Simulator run (``{jobname}/``).
     jobname: str = "job"
-    #: "none" = real-time propagation; "imaginary" = imaginary-time relaxation;
-    #: "improved" = improved (diagonalisation) relaxation.  The port runs
-    #: "none" only (relaxation is ROADMAP A7).
+    #: "none" = real-time propagation; "imaginary" = imaginary-time relaxation
+    #: (step scale −dt/2, the norm restored after every exponential);
+    #: "improved" = improved (diagonalisation) relaxation: each site's
+    #: H-Krylov is replaced by the restarted Lanczos ground state
+    #: (``cuda_lanczos.ground_state``) and the K step is skipped.
     relax: Literal["none", "imaginary", "improved"] = "none"
+    #: Marks the configuration of an operator application
+    #: (``Simulator.operate`` sets it).  A label kept for parity with the
+    #: JAX package's ``Config``: no code reads it, and
+    #: ``TDVPEngine.apply_operator_fit`` runs the same either way.
+    apply_dipole: bool = False
     #: Krylov exponential integrator for the local updates: "lanczos"
     #: (Hermitian H_eff; the Lanczos kernel) or "arnoldi" (any H_eff, e.g.
     #: a Liouvillian; Gram–Schmidt in PyTorch around the matvec kernels).
@@ -99,6 +106,9 @@ class Config:
     fetch_stride: int = 1
 
     def __post_init__(self):
+        if self.relax not in ("none", "imaginary", "improved"):
+            raise ValueError(
+                f"relax={self.relax!r}: none | imaginary | improved")
         for name in ("matvec_precision", "env_precision"):
             value = getattr(self, name)
             if value not in ("highest", "high", "default"):

@@ -6,7 +6,10 @@
 //   scale = ||m||_F + 1e-30; for each column k: two Gram–Schmidt passes
 //   against Q[:, :k] (coefficients c1, c2), R[:k, k] = c1 + c2,
 //   nv = ||v||; a column with nv < 1e-7 * scale is dead: Q[:, k] is the
-//   canonical vector e_{k mod N} orthogonalised twice, R[k, k] = 0;
+//   canonical vector e_{k mod N} orthogonalised twice, R[k, k] = 0 (where
+//   that lies in the span of the earlier columns, its residual below the
+//   float32 noise floor 16 eps sqrt N, the next e_j that does not:
+//   tdvp_device.cuh, cuda_qr.completion_tol);
 //   otherwise Q[:, k] = v / nv and R[k, k] = nv.
 //
 // Bound on the H100: neither bytes nor FLOPs (a (240, 30) factor is 58 KB
@@ -36,7 +39,7 @@
 //    same coefficients and the same dead/live decision bit for bit: they
 //    cannot diverge at a barrier or build inconsistent columns.  A column
 //    costs three cluster barriers (two passes and ||v||), six if it is dead.
-//    The completion's row k mod N lives in one CTA, R is written by rank 0,
+//    The completion's row lives in one CTA, R is written by rank 0,
 //    and each CTA writes its own rows of the row-major Q.  This replaces one
 //    block streaming the whole Q from L2 twice per pass, about 66 MB
 //    through one SM's L2 port at (1024, 64) (2.14 ms on an H100).

@@ -49,6 +49,24 @@ constexpr float kSubstepNorm = 0.5f;
 constexpr int kMaxSubsteps = 65536;
 constexpr float kEpsBreakdown = 1.0e-14f;
 constexpr float kRankTol = 1.0e-7f;
+// A dead column's completion: the first canonical vector e_j, j = k, k+1,
+// ... (mod N), whose residual orthogonalised twice (plus the 1e-30 guard of
+// its normalisation) reaches completion_tol(N): e_{k mod N} wherever it
+// does (the JAX package's semantics).  The bar is the float32 noise floor
+// of two Gram-Schmidt passes over N rows, kCompletionNoise * sqrt(N) (16
+// eps sqrt N): a canonical vector that lies in the span of the earlier
+// columns (the even ground state of H2O on its symmetric grid) leaves a
+// residual below it (9e-16 to 5e-8 for H2O's N = 9, against a bar of
+// 5.7e-6), and improved relaxation then finds the spurious low end of an
+// environment built on it: H2O's ZPE collapsed to 7.8e-13 on the H100.
+// Any residual above it is orthogonalised to ~eps by the second pass
+// (cuda_qr.completion_tol).  Some e_j keeps at least 1 / sqrt N, so the
+// scan ends for N < 5e5.
+constexpr float kCompletionNoise = 16.0f * 1.1920929e-7f;
+
+__device__ __forceinline__ float completion_tol(int N) {
+  return kCompletionNoise * sqrtf(static_cast<float>(N));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -141,8 +159,10 @@ __device__ float norm2(const float2* x, int N, float* red) {
 // passes per column; Q comes out column-major (column j at Q + j * N), R
 // row-major (r, r).  scale = ||m||_F + 1e-30; column k is projected twice
 // (R[:k, k] = c1 + c2); nv = ||v|| < 1e-7 scale marks a dead column, which
-// gets the canonical vector e_{k mod N} orthogonalised twice and a zero R
-// diagonal.  v and e hold N entries, c1, c2, c3 r entries each.
+// gets a zero R diagonal and the first canonical vector e_j, j = k, k+1,
+// ... (mod N), orthogonalised twice whose residual reaches
+// completion_tol(N) (e_{k mod N} wherever it does).  v and e hold N
+// entries, c1, c2, c3 r entries each.
 template <int kThreads>
 __device__ void mgs_factor(const float2* m, float2* Q, float2* R, int N, int r,
                            float2* v, float2* e, float2* c1, float2* c2,
@@ -166,12 +186,17 @@ __device__ void mgs_factor(const float2* m, float2* Q, float2* R, int N, int r,
     const bool bad = nv < kRankTol * scale;  // uniform across the block
     float2* col = Q + (size_t)k * N;
     if (bad) {
-      for (int n = tid; n < N; n += kThreads)
-        e[n] = make_float2(n == k % N ? 1.f : 0.f, 0.f);
-      __syncthreads();
-      gs_pass<kThreads>(Q, e, c3, N, k);
-      gs_pass<kThreads>(Q, e, c3, N, k);
-      const float ne = sqrtf(norm2<kThreads>(e, N, red)) + 1e-30f;
+      float ne = 0.f;
+      for (int t = 0; t < N; ++t) {  // (ne is uniform across the block)
+        const int hot = (k + t) % N;
+        for (int n = tid; n < N; n += kThreads)
+          e[n] = make_float2(n == hot ? 1.f : 0.f, 0.f);
+        __syncthreads();
+        gs_pass<kThreads>(Q, e, c3, N, k);
+        gs_pass<kThreads>(Q, e, c3, N, k);
+        ne = sqrtf(norm2<kThreads>(e, N, red)) + 1e-30f;
+        if (ne >= completion_tol(N)) break;
+      }
       for (int n = tid; n < N; n += kThreads)
         col[n] = make_float2(e[n].x / ne, e[n].y / ne);
     } else {
@@ -579,7 +604,9 @@ __device__ void cluster_gs_pass(ClusterRows& c, const float2* Q, float2* x,
 }
 
 // Thin QR over the cluster by MGS(×2), with mgs_factor's semantics (dead
-// columns completed by e_{k mod N} orthogonalised twice, zero R diagonal).
+// columns completed by the first canonical vector from e_{k mod N} on
+// whose residual orthogonalised twice reaches completion_tol(N), zero R
+// diagonal).
 // Q (this CTA's nh rows, row stride c.rp, in its shared memory) holds the
 // rows of m on entry and the rows of Q on return; N is the number of rows
 // over the cluster, r = c.r the number of columns.  R (r, r), if not null,
@@ -614,15 +641,19 @@ __device__ void cluster_mgs_factor(ClusterRows& c, float2* Q, float2* R,
     const float nv = sqrtf(cluster_norm2<kThreads, kC>(c, v, red));
     const bool bad = nv < kRankTol * scale;  // the same in every CTA
     if (bad) {
-      const int hot = k % N - c.row0;  // row of e_{k mod N} here, if any
-      for (int n = tid; n < c.nh; n += kThreads)
-        e[n] = make_float2(n == hot ? 1.f : 0.f, 0.f);
-      __syncthreads();
-      if (k > 0) {
-        cluster_gs_pass<kThreads, kC>(c, Q, e, c3, k);
-        cluster_gs_pass<kThreads, kC>(c, Q, e, c3, k);
+      float ne = 0.f;
+      for (int t = 0; t < N; ++t) {  // (ne is the same in every CTA)
+        const int hot = (k + t) % N - c.row0;  // row of e_j here, if any
+        for (int n = tid; n < c.nh; n += kThreads)
+          e[n] = make_float2(n == hot ? 1.f : 0.f, 0.f);
+        __syncthreads();
+        if (k > 0) {
+          cluster_gs_pass<kThreads, kC>(c, Q, e, c3, k);
+          cluster_gs_pass<kThreads, kC>(c, Q, e, c3, k);
+        }
+        ne = sqrtf(cluster_norm2<kThreads, kC>(c, e, red)) + 1e-30f;
+        if (ne >= completion_tol(N)) break;
       }
-      const float ne = sqrtf(cluster_norm2<kThreads, kC>(c, e, red)) + 1e-30f;
       for (int n = tid; n < c.nh; n += kThreads)
         Q[n * c.rp + k] = make_float2(e[n].x / ne, e[n].y / ne);
     } else {

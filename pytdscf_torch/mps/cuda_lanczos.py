@@ -46,6 +46,15 @@ block, the (30, 30) K step 0.100 ms on 8 against 0.134 (PERF.md §6).
 Both hold the Krylov vectors in device-memory scratch that the wrapper
 allocates.  Neither falls back to the other: a cluster that the card
 cannot schedule raises.
+
+Improved relaxation's restarted Lanczos ground state (the JAX package's
+``_ground_state_multi`` over ``lanczos_ground_state``: XLA's
+``while_loop`` and ``eigh``, no ``pl.pallas_call``) is a second kernel over
+the same channels, ``csrc/lanczos_gs.cu``: :func:`ground_state` runs every
+pass of a site in one launch, on a cluster of :func:`cluster_size` CTAs or,
+where that finds none, on one CTA (a cluster of one), and
+:func:`ground_state_plain` is its plain version
+(``integrator.ground_state_multi`` over the channel matvec).
 """
 
 from __future__ import annotations
@@ -53,9 +62,11 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 from pytdscf_torch import _cuda
+from pytdscf_torch.mps import integrator
 
 EPS_BREAKDOWN = 1.0e-14
 #: Taylor order per substep: with ‖scale·T‖ ≤ 0.5 per substep the
@@ -192,26 +203,31 @@ def substeps(bound: float) -> int:
 
 def tridiag_expm_e0(diag, off, scale: complex) -> torch.Tensor:
     """exp(scale·T)e₀ for the symmetric tridiagonal T = tridiag(off, diag,
-    off) (real 1-D tensors), by order-10 Taylor substeps."""
+    off) (real 1-D tensors), by order-10 Taylor substeps.  The recurrence
+    runs in numpy on the host (a tridiagonal of at most 32 entries, a few
+    hundred scalar-sized steps: torch launches cost more than the work) in
+    the tensors' precision, and the result comes back to their device."""
     n = diag.shape[0]
+    d = diag.detach().cpu().numpy()
+    o = off.detach().cpu().numpy()
     bound = abs(scale) * (
-        float(diag.abs().max()) + 2.0 * (float(off.max()) if n > 1 else 0.0)
+        float(np.abs(d).max()) + 2.0 * (float(o.max()) if n > 1 else 0.0)
     )
     m = substeps(bound)
-    s = scale / m
-    cdtype = torch.complex128 if diag.dtype == torch.float64 else torch.complex64
-    y = torch.zeros(n, dtype=cdtype, device=diag.device)
+    cdtype = np.complex128 if d.dtype == np.float64 else np.complex64
+    s = cdtype(scale / m)
+    y = np.zeros(n, dtype=cdtype)
     y[0] = 1.0
     for _ in range(m):
         t = y
         for order in range(1, TAYLOR_ORDER + 1):
-            z = diag * t
+            z = d * t
             if n > 1:
-                z[1:] += off * t[:-1]
-                z[:-1] += off * t[1:]
-            t = (z * s) * (1.0 / order)
+                z[1:] += o * t[:-1]
+                z[:-1] += o * t[1:]
+            t = (z * s) * cdtype(1.0 / order)
             y = y + t
-    return y
+    return torch.from_numpy(y).to(diag.device)
 
 
 def _matvec(H, Rt, x):
@@ -340,3 +356,113 @@ lanczos_expm.launches = 0
 lanczos_expm.route_launches = dict.fromkeys(ROUTES, 0)
 lanczos_expm.cluster_launches = {}
 lanczos_expm.plain_calls = 0
+
+
+# ------------------------------------------------ improved relaxation
+
+
+def gs_fits(shape: tuple, nc: int) -> bool:
+    """Whether the engine runs the ground state of an (M, r) site over
+    ``nc`` channels through the kernel: the complex64 channels and the
+    kernel's ``k_max + 1`` Krylov vectors (k_max = min(24, M·r)) within
+    :data:`MAX_BYTES`, as :func:`fits` counts them.  A larger site runs
+    ``integrator.ground_state_multi`` over the chain einsums."""
+    M, r = shape
+    kmax = min(integrator.GS_BLOCK_DIM, M * r)
+    return 8 * (nc * (M * M + r * r) + (kmax + 1) * M * r) <= MAX_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def gs_plan(M: int, r: int, nc: int, way: str | None = None
+            ) -> tuple[str, int, bool, int]:
+    """``(way, C, resident, scratch)`` of a ground-state launch, as
+    :func:`plan`: the cluster route on :func:`cluster_size` CTAs, the
+    one-block route as a cluster of one CTA; each CTA
+    holds its rows of the ``k_max + 1`` Krylov vectors in device scratch
+    (complex64 entries).  Raises ValueError where the shared memory of the
+    route does not hold the shape."""
+    if way is None:
+        way = route(M, r, nc)
+    if way not in ROUTES:
+        raise ValueError(f"unknown ground_state route {way!r}")
+    size = 1 if way == "block" else cluster_size(M, r, nc) or CLUSTER
+    if smem_bytes(nc, M, r, size) > MAX_SMEM:
+        raise ValueError(f"ground_state: ({M}, {r}) with {nc} channels "
+                         f"does not fit the {way} route of {size} CTAs")
+    resident = smem_bytes(nc, M, r, size, resident=True) <= MAX_SMEM
+    kmax = min(integrator.GS_BLOCK_DIM, M * r)
+    return way, size, resident, size * (kmax + 1) * -(-M // size) * r
+
+
+def ground_state_plain(H, Rt, v):
+    """Plain PyTorch version of the ground-state kernel, any complex dtype
+    and device: ``integrator.ground_state_multi`` over the channel matvec
+    ``Σ_c H_c (v Rt_c)``.  Returns ``(v' (M, r), status)``, ``status =
+    [passes, Lanczos iterations, breakdowns]`` (int32)."""
+    M, r = v.shape
+
+    def mv(x):
+        return _matvec(H, Rt, x.reshape(M, r)).reshape(-1)
+
+    out, status = integrator.ground_state_multi(mv, v.reshape(-1))
+    return out.reshape(M, r), status
+
+
+def ground_state(ch, v, *, way: str | None = None):
+    """The lowest eigenvector of H = Σ_c H_c (· Rt_c) by restarted Lanczos
+    from ``v`` (M, r) (improved relaxation), for the channels ``ch = (H,
+    Rt)``; returns ``(v', status)``, ``status = [passes, Lanczos
+    iterations, breakdowns]`` (int32), v' normalised.
+
+    A CUDA tensor goes through the kernel, every pass in one launch, on
+    the route of :func:`gs_plan` (or ``way``, to compare the routes):
+    complex64 and contiguous, or this raises.  A CPU tensor goes
+    through :func:`ground_state_plain`.  ``ground_state.launches`` counts
+    kernel launches (``route_launches`` by route, ``cluster_launches``
+    the cluster route's by size), ``ground_state.plain_calls`` the CPU
+    calls."""
+    H, Rt = ch
+    if v.ndim != 2 or H.ndim != 3 or Rt.ndim != 3:
+        raise ValueError("ground_state takes v (M, r), H (nc, M, M), Rt (nc, r, r)")
+    M, r = v.shape
+    nc = H.shape[0]
+    if H.shape != (nc, M, M) or Rt.shape != (nc, r, r):
+        raise ValueError(
+            f"channel shapes {tuple(H.shape)}, {tuple(Rt.shape)} do not fit "
+            f"v {tuple(v.shape)}"
+        )
+    if v.device.type == "cpu":
+        ground_state.plain_calls += 1
+        return ground_state_plain(H, Rt, v)
+    if v.device.type != "cuda":
+        raise ValueError(f"ground_state: no kernel for device {v.device}")
+    for name, t in (("v", v), ("H", H), ("Rt", Rt)):
+        if t.dtype != torch.complex64:
+            raise TypeError(f"the CUDA ground_state takes complex64 {name}, got {t.dtype}")
+        if t.device != v.device:
+            raise ValueError(f"{name} is on {t.device}, v on {v.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"the CUDA ground_state takes a contiguous {name}")
+    way, size, resident, nscratch = gs_plan(M, r, nc, way)
+    kmax = min(integrator.GS_BLOCK_DIM, M * r)
+    out = torch.empty_like(v)
+    status = torch.empty(3, dtype=torch.int32, device=v.device)
+    scratch = torch.empty(nscratch, dtype=torch.complex64, device=v.device)
+    code = _cuda.load().pytdscf_lanczos_gs_c64(
+        v.device.index, H.data_ptr(), Rt.data_ptr(), v.data_ptr(),
+        out.data_ptr(), status.data_ptr(), scratch.data_ptr(), nc, M, r,
+        kmax, size, int(resident),
+        torch.cuda.current_stream(v.device).cuda_stream)
+    _cuda.check(code, f"ground_state ({way} route)")
+    ground_state.launches += 1
+    ground_state.route_launches[way] += 1
+    if way == "cluster":
+        ground_state.cluster_launches[size] = (
+            ground_state.cluster_launches.get(size, 0) + 1)
+    return out, status
+
+
+ground_state.launches = 0
+ground_state.route_launches = dict.fromkeys(ROUTES, 0)
+ground_state.cluster_launches = {}
+ground_state.plain_calls = 0

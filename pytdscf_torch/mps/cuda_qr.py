@@ -3,7 +3,8 @@
 Replaces the JAX package's ``mps/pallas_qr.py:mgs_qr_fused`` (its Pallas body is
 ``_mgs_kernel`` / ``_mgs_phase``).  The kernel is ``csrc/mgs_qr.cu``; its
 plain PyTorch version, :func:`mgs_qr_plain`, is the same algorithm as the
-JAX package's ``kernels._mgs_qr`` and serves every CPU tensor.
+JAX package's ``kernels._mgs_qr`` (but for the completion's scan, below)
+and serves every CPU tensor.
 
 Semantics (identical in both versions):
 
@@ -11,9 +12,13 @@ Semantics (identical in both versions):
 * column k is projected twice against the accumulated Q, and
   ``R[:, k] = c₁ + c₂``, with ``nv = ‖v‖`` on the diagonal;
 * a dead column (``nv`` below the threshold) gets the canonical vector
-  ``e_{k mod N}``, orthogonalised twice, and a ZERO R diagonal.  The
-  completions set the frame through which the fixed-D sweep grows
-  amplitude into padded bond channels, so they are part of the result.
+  ``e_{k mod N}``, orthogonalised twice, and a ZERO R diagonal; where that
+  vector lies in the span of the earlier columns (its residual below
+  :func:`completion_tol`), the next canonical vector that does not
+  (ROADMAP C4: the JAX package keeps e_{k mod N} and gets a column that
+  is not orthonormal).  The completions set the frame through which the
+  fixed-D sweep grows amplitude into padded bond channels, so they are
+  part of the result.
 
 What bounds the kernel on the H100: not bytes or FLOPs (a (240, 30) factor
 is 0.35 MFLOP over 58 KB) but the serial chain of r columns, each a few
@@ -35,6 +40,8 @@ shared memory they need (see the source note in ``csrc/mgs_qr.cu``):
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from pytdscf_torch import _cuda
@@ -44,14 +51,52 @@ from pytdscf_torch import _cuda
 MAX_SMEM = 232_448 - 1024
 #: Rank threshold relative to ‖m‖_F.
 RANK_TOL = 1.0e-07
+#: A dead column's completion is the first canonical vector e_j, j = k,
+#: k+1, … (mod N), whose residual orthogonalised twice (plus the 1e-30
+#: guard of its normalisation) reaches :func:`completion_tol`: e_{k mod N}
+#: wherever it does, the JAX package's semantics.  A canonical vector that
+#: lies in the span of the earlier columns (the even ground state of H2O on
+#: its symmetric grid) leaves rounding noise: the JAX package's MGS keeps
+#: it, the columns after it lose their orthogonality, and improved
+#: relaxation collapses to E ≈ 0 (ROADMAP C4).  complex64 (the kernels'
+#: dtype): the float32 noise floor of two passes over N rows,
+#: COMPLETION_NOISE · eps · √N.  H2O's in-span residuals read 9e-16 to
+#: 4.8e-8 at N = 9 (bar 5.7e-6); noise over N random rows reads 0.07-0.1
+#: eps·√N; any residual above the bar comes out of the second pass
+#: orthogonal to ~eps, so the bar replaces no completion that is one.
+#: complex128: 1e-28, the residuals the guard swallows (7.7e-34 for H2O),
+#: which leaves every other completion as the JAX package makes it (the
+#: singlet-fission chain's smallest is 5.6e-26).  Some e_j keeps at least
+#: 1/√N (an orthonormal Q[:, :k], k < N, puts k of N units of weight on the
+#: rows), so the scan ends for N < 5e5.
+COMPLETION_NOISE = 16.0
+
+
+def completion_tol(dtype: torch.dtype, N: int) -> float:
+    """The residual below which a completion of N rows lies in the span
+    of the earlier columns (see :data:`COMPLETION_NOISE`)."""
+    if dtype == torch.complex128:
+        return 1.0e-28
+    return COMPLETION_NOISE * torch.finfo(torch.float32).eps * math.sqrt(N)
+
+
+def _completion(Q, k: int, j: int):
+    """The canonical vector e_j orthogonalised twice against Q (whose
+    columns from k on are zero), and its norm (+1e-30)."""
+    e = torch.zeros((Q.shape[0],), dtype=Q.dtype, device=Q.device)
+    e[j] = 1.0
+    e = e - Q @ (Q.conj().T @ e)
+    e = e - Q @ (Q.conj().T @ e)
+    return e, torch.linalg.vector_norm(e) + 1e-30
 
 
 def mgs_qr_plain(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Thin QR by modified Gram–Schmidt with reorthogonalisation.
 
     Plain PyTorch, any complex dtype and device; the oracle of the kernel
-    and the gauge of every CPU run.  No host synchronisation: dead-column
-    decisions stay on the device through ``torch.where``.
+    and the gauge of every CPU run.  Dead-column decisions stay on the
+    device through ``torch.where``; a completion that must look past
+    e_{k mod N} (:func:`completion_tol`) reads one flag per candidate.
     """
     N, r = m.shape
     dtype, dev = m.dtype, m.device
@@ -60,6 +105,7 @@ def mgs_qr_plain(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     R = torch.zeros((r, r), dtype=dtype, device=dev)
     one = torch.ones((), dtype=scale.dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
+    tol = completion_tol(dtype, N)
     for k in range(r):
         v = m[:, k]
         # two Gram–Schmidt passes against the accumulated Q
@@ -71,11 +117,12 @@ def mgs_qr_plain(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         nv = torch.linalg.vector_norm(v)
         bad = nv < RANK_TOL * scale
         # deterministic completion: canonical basis vector, orthogonalised
-        e = torch.zeros((N,), dtype=dtype, device=dev)
-        e[k % N] = 1.0
-        e = e - Q @ (Q.conj().T @ e)
-        e = e - Q @ (Q.conj().T @ e)
-        ne = torch.linalg.vector_norm(e) + 1e-30
+        e, ne = _completion(Q, k, k % N)
+        if bool(bad & (ne < tol)):  # one flag read a column
+            for t in range(1, N):
+                e, ne = _completion(Q, k, (k + t) % N)
+                if bool(ne >= tol):
+                    break
         Q[:, k] = torch.where(bad, e / ne, v / torch.where(bad, one, nv))
         R[k, k] = torch.where(bad, zero, nv.to(dtype))
     return Q, R

@@ -16,6 +16,12 @@ the reduced matrix T, the coefficients c and the control flags.
   engine runs it for a Hermitian site that the Lanczos kernel does not
   take (too large, relaxed, or not "highest" precision).
 
+Improved relaxation replaces the exponential by the restarted-Lanczos
+ground state (:func:`ground_state_multi` over passes of
+:func:`lanczos_ground_state`, the JAX package's ``_ground_state_multi`` and
+``lanczos_ground_state``): the plain version of the ``cuda_lanczos``
+ground-state kernel, and the route of a site past its ``gs_fits``.
+
 Each iteration ends with the control step ``cuda_krylov.krylov_ctl`` (a
 kernel on the card): ``exp(scale·T)[:, 0]`` by order-12 Taylor with scaling
 and squaring, the breakdown, convergence and cap tests, and the flags and
@@ -30,6 +36,7 @@ index, so that iterations ``>= relax_after`` can run the relaxed matvec.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -187,3 +194,91 @@ def _lanczos_step(k, mv, state, ctl):
     G[: k + 1, k] = g
     G[k, : k + 1] = g.conj()
     CK.krylov_ctl(T, G, c, flags, status, k=k, **ctl)
+
+
+#: Improved relaxation (the JAX package's ``lanczos_ground_state`` and
+#: ``_ground_state_multi``): Krylov vectors of one restarted-Lanczos pass,
+#: the restart test on the energy, the most passes, and the diagonal that
+#: masks T's unused tail.
+GS_BLOCK_DIM = 24
+GS_TOL = 1.0e-12
+GS_MAX_RESTARTS = 100
+GS_MASK = 1.0e10
+
+
+def lanczos_ground_state(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    v_init: torch.Tensor,
+    block_dim: int = GS_BLOCK_DIM,
+):
+    """One restarted-Lanczos pass: the normalised Ritz vector of the lowest
+    eigenvalue of the Hermitian ``matvec`` in the Krylov space of
+    ``v_init`` (a flat vector).  Returns ``(ground, k_fin, broke)``, the
+    last two as device tensors: the iterations that ran and whether the
+    pass broke down.
+
+    The JAX package's semantics: ``k_max = min(block_dim, n)``; the
+    three-term recurrence ``β_k v_{k+1} = H v_k − α_k v_k − β_{k−1}
+    v_{k−1}`` with ``α_k = Re⟨v_k|H v_k⟩`` and no re-orthogonalisation; a
+    breakdown (β < 1e-14) ends the pass; T is assembled in float64 with its
+    inactive tail masked at 1e10 and solved by ``eigh``.  The loop runs
+    all ``k_max`` iterations with nothing read back: after a breakdown the
+    Krylov vectors are zero and their entries of T masked, so the result
+    is the early-stopping loop's."""
+    n = v_init.shape[0]
+    k_max = min(block_dim, n)
+    dtype, dev = v_init.dtype, v_init.device
+    V = torch.zeros((k_max + 1, n), dtype=dtype, device=dev)
+    V[0] = v_init / torch.linalg.vector_norm(v_init)
+    alpha = torch.zeros(k_max, dtype=torch.float64, device=dev)
+    beta = torch.zeros(k_max, dtype=torch.float64, device=dev)
+    alive = torch.ones((), dtype=torch.bool, device=dev)
+    k_fin = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(k_max):
+        w = matvec(V[k])
+        a = torch.vdot(V[k], w).real
+        w = w - a.to(dtype) * V[k]
+        if k > 0:
+            w = w - beta[k - 1].to(dtype) * V[k - 1]
+        b = torch.linalg.vector_norm(w)
+        V[k + 1] = torch.where(b > EPS, w / torch.where(b > EPS, b, 1.0), 0)
+        alpha[k] = a
+        beta[k] = b
+        k_fin = k_fin + alive.to(torch.int64)
+        alive = alive & ~(b < EPS)
+    idx = torch.arange(k_max, device=dev)
+    alpha_m = torch.where(idx < k_fin, alpha, GS_MASK)
+    off = torch.where(idx[:-1] < k_fin - 1, beta[:-1], 0.0)
+    T = torch.diag(alpha_m) + torch.diag(off, 1) + torch.diag(off, -1)
+    _, evecs = torch.linalg.eigh(T)
+    ground = evecs[:, 0].to(dtype) @ V[:k_max]
+    return ground / torch.linalg.vector_norm(ground), k_fin, ~alive
+
+
+def ground_state_multi(
+    matvec: Callable[[torch.Tensor], torch.Tensor], v0: torch.Tensor,
+):
+    """Restarted Lanczos to the lowest eigenvector (improved relaxation):
+    passes of :func:`lanczos_ground_state`, each from the last Ritz vector,
+    while the energy ``Re⟨v|H v⟩`` moves by more than ``GS_TOL`` and fewer
+    than ``GS_MAX_RESTARTS`` passes ran (at least two run).
+
+    Returns ``(v, status)``, ``status = [passes, Lanczos iterations,
+    breakdowns]`` (int32, on v's device).  The restart test reads one flag
+    from the device per pass; the energy is compared in float64."""
+    v = v0 / torch.linalg.vector_norm(v0)
+    e_prev = torch.full((), math.inf, dtype=torch.float64, device=v.device)
+    tally = torch.zeros(3, dtype=torch.int64, device=v.device)
+    passes = 0
+    while True:
+        v, k_fin, broke = lanczos_ground_state(matvec, v)
+        e = torch.vdot(v, matvec(v)).real.to(torch.float64)
+        passes += 1
+        tally = tally + torch.stack(
+            [torch.ones_like(k_fin), k_fin, broke.to(torch.int64)])
+        # the pass's one host read
+        if not (bool(torch.abs(e - e_prev) > GS_TOL)
+                and passes < GS_MAX_RESTARTS):
+            break
+        e_prev = e
+    return v, tally.to(torch.int32)

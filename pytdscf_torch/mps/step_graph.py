@@ -9,8 +9,8 @@ instead of the host's launch of each of its kernels and torch operations.
 
 The carry, the state one step maps onto the next, lives in fixed buffers:
 the cores, the right environment stack (blocks and log-scales), the
-device-side Krylov telemetry and, in ``pytest_enabled`` runs, the gauge
-deviation.  A recorded step reads the buffers and ends by copying its new
+device-side Krylov and ground-state telemetry and, in ``pytest_enabled``
+runs, the gauge deviation.  A recorded step reads the buffers and ends by copying its new
 carry into them (:func:`copy_all`), since a replay writes to
 the addresses of the capture.  The buffers take the shapes and strides of
 the carry after one real step, so the uncaptured program on the CPU runs
@@ -72,7 +72,8 @@ def _wrappers() -> tuple:
     from pytdscf_torch.mps import cuda_renorm as CR
     from pytdscf_torch.mps import cuda_site as CS
 
-    return (CL.lanczos_expm, CQ.mgs_qr, CS.site_step_fused, CM.heff_lo,
+    return (CL.lanczos_expm, CL.ground_state, CQ.mgs_qr, CS.site_step_fused,
+            CM.heff_lo,
             CM.keff_lo, CR.renorm_hi, CR.renorm_lo, CR.matvec_hi,
             CK.krylov_ctl)
 
@@ -87,7 +88,7 @@ def _plans() -> tuple:
     from pytdscf_torch.mps import cuda_lanczos as CL
     from pytdscf_torch.mps import cuda_site as CS
 
-    return CL.plan, CS.plan, CS.route
+    return CL.plan, CL.gs_plan, CS.plan, CS.route
 
 
 def _plan_misses() -> tuple:
@@ -170,12 +171,14 @@ def copy_all(dst: list, src: list) -> None:
 
 def _carry(engine) -> list:
     """The engine's step carry as a flat list: cores, environment blocks,
-    their log-scales, the Krylov telemetry and, in ``pytest_enabled``
+    their log-scales, the Krylov and ground-state telemetry and, in
+    ``pytest_enabled``
     runs, the gauge deviation (None where the engine holds none yet)."""
     out = [*engine.cores[0]]
     out += [block for block, _ in engine.env_stack]
     out += [log for _, log in engine.env_stack]
     out.append(engine._kry_sum)
+    out.append(engine._gs_tally)
     if engine.config.pytest_enabled:
         out.append(engine._gauge_dev)
     return out
@@ -233,7 +236,8 @@ class StepProgram:
         engine.env_stack = list(zip(b[n:2 * n], b[2 * n:3 * n]))
         engine._env_side = "right"
         engine._kry_sum = b[3 * n]
-        engine._gauge_dev = b[3 * n + 1] if engine.config.pytest_enabled \
+        engine._gs_tally = b[3 * n + 1]
+        engine._gauge_dev = b[3 * n + 2] if engine.config.pytest_enabled \
             else None
 
     def _body(self, engine) -> None:

@@ -2,16 +2,25 @@
 
 The counterpart of the JAX package's ``mps/tdvp.py`` for the ported slices:
 one electronic state (an MPS, or a vectorised density matrix in Liouville
-space) under one fused MPO, real-time propagation with the symmetric lt2
-step.  One time step is a forward and a backward half-sweep of dt/2; at
-each site:
+space) under one fused MPO, with the symmetric lt2 step, in the three
+modes of ``Config.relax``.  One time step is a forward and a backward
+half-sweep of dt/2; at each site:
 
-1. exp(−i·dt/2·H_eff) on the site tensor;
+1. exp(scale·H_eff) on the site tensor, scale = −i·dt/2 in real time and
+   −dt/2 in imaginary time (the result renormalised);
 2. the QR gauge move (``kernels.qr_right`` / ``lq_left``: MGS, or
    CholeskyQR³ for bonds of 192 and more);
 3. the environment-block transfer, kept at unit norm with a log-scale;
-4. exp(+i·dt/2·K_eff) on the bond matrix;
+4. exp(−scale·K_eff) on the bond matrix;
 5. absorbing the bond matrix into the next core.
+
+Improved relaxation (``relax="improved"``, the JAX package's ``mode ==
+"improved"``) replaces step 1 by the lowest eigenvector of H_eff, restarted
+Lanczos from the site itself (``cuda_lanczos.ground_state``: one kernel
+launch a site on the card where ``gs_fits``, else
+``integrator.ground_state_multi`` over the einsums), and skips step 4.
+:meth:`TDVPEngine.apply_operator_fit` fits O|Ψ⟩ by alternating sweeps
+(``Simulator.operate``).
 
 Two Krylov routes.  Lanczos (Hermitian H_eff, the small-bond chains): the
 whole exponential is one ``cuda_lanczos.lanczos_expm`` call, the kernel on
@@ -62,7 +71,11 @@ from pytdscf_torch.mps import cuda_site as CS
 from pytdscf_torch.mps import kernels as K
 from pytdscf_torch.mps import cuda_lanczos as CL
 from pytdscf_torch.mps import step_graph
-from pytdscf_torch.mps.integrator import krylov_expm
+from pytdscf_torch.mps.integrator import (
+    GS_MAX_RESTARTS,
+    ground_state_multi,
+    krylov_expm,
+)
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 
@@ -112,10 +125,26 @@ def _takes_fused_site(cfg, psi_shape, W_shape, nxt_shape) -> bool:
 
 def _takes_lanczos_kernel(cfg) -> bool:
     """Whether Lanczos sites may run the Lanczos kernel (where its channels
-    fit): exact "highest" matvecs and no relaxation, the JAX package's
-    ``use_plz`` rule; otherwise ``integrator.krylov_expm`` runs."""
+    fit): exact "highest" matvecs, no relaxed Krylov and no improved
+    relaxation (which runs no exponential), the JAX package's ``use_plz``
+    rule; otherwise ``integrator.krylov_expm`` runs."""
     return (cfg.integrator == "lanczos" and not cfg.krylov_relaxed
-            and cfg.matvec_precision == "highest")
+            and cfg.matvec_precision == "highest"
+            and cfg.relax != "improved")
+
+
+def _conserve(cfg) -> bool:
+    """Whether the exponentials renormalise their result: as configured,
+    and always in imaginary time (the JAX package's ``conserve_norm or
+    mode == "imag"``)."""
+    return cfg.conserve_norm or cfg.relax == "imaginary"
+
+
+def step_scale(cfg, dt: float) -> complex:
+    """The half-sweep's exponent scale: ``−i·dt/2`` in real time, ``−dt/2``
+    in both relaxation modes (``exp(−dt/2·H)``; improved relaxation runs no
+    exponential and keys its step programs by it)."""
+    return -0.5j * dt if cfg.relax == "none" else complex(-0.5 * dt)
 
 
 def _normalize_block(B):
@@ -160,7 +189,7 @@ def _einsum_expm(v, scale, fac, cfg, L, R, W=None):
 
     out, status = krylov_expm(
         lo if prec == "default" else mv, v.reshape(-1), scale, cfg.thresh_exp,
-        cfg.max_krylov, cfg.conserve_norm,
+        cfg.max_krylov, _conserve(cfg),
         arnoldi=cfg.integrator == "arnoldi", return_status=True,
         matvec_lo=lo if cfg.krylov_relaxed else None,
         relax_after=cfg.relax_after,
@@ -169,8 +198,8 @@ def _einsum_expm(v, scale, fac, cfg, L, R, W=None):
 
 
 def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
-    """One site update.  Returns (site_out, psi_next, (block, log), stats,
-    relaxed).
+    """One site update in real or imaginary time.  Returns (site_out,
+    psi_next, (block, log), stats, relaxed).
 
     ``L``/``R`` are the blocks left and right of the site and ``lL``/``lR``
     their log-scales; the block on the sweep's trailing side is the
@@ -179,7 +208,7 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
     the relaxed-matvec counts (device scalars) of its einsum-route calls.
     """
     l, d, r = psi.shape
-    conserve = cfg.conserve_norm
+    conserve = _conserve(cfg)
     if not last and _takes_fused_site(cfg, psi.shape, W.shape, nxt.shape):
         # the whole update as one call of the fused site kernel
         site_out, psi_next, block, log_new, st = CS.site_step_fused(
@@ -202,21 +231,8 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
         psi_new = out.reshape(l, d, r)
     if last:
         return psi_new, None, None, [st_h], relaxed
-    env = cfg.env_precision
-    if forward:
-        site_out, sig = K.qr_right(psi_new)
-        renorm = {"high": CR.renorm_left_hi, "default": CR.renorm_left_lo
-                  }.get(env, K.renorm_block_left)
-        raw = renorm(L, site_out, W, site_out)
-        l_sys, l_env = lL, lR
-    else:
-        sig, site_out = K.lq_left(psi_new)
-        renorm = {"high": CR.renorm_right_hi, "default": CR.renorm_right_lo
-                  }.get(env, K.renorm_block_right)
-        raw = renorm(R, site_out, W, site_out)
-        l_sys, l_env = lR, lL
-    block, dl = _normalize_block(raw)
-    log_new = l_sys + dl
+    site_out, sig, block, log_new, l_env = _gauge_move(
+        psi_new, L, W, R, lL, lR, cfg=cfg, forward=forward)
     kL, kR = (block, R) if forward else (L, block)
     kfac = torch.exp(log_new + l_env)
     if not kernel or not CL.fits(sig.shape, kR.shape[1], cfg.max_krylov):
@@ -234,6 +250,59 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
     return site_out, psi_next, (block, log_new), [st_h, st_k], relaxed
 
 
+def _gauge_move(psi_new, L, W, R, lL, lR, *, cfg, forward):
+    """The QR gauge move of an updated site and its environment transfer:
+    ``(site_out, sig, block, log_new, l_env)``, the new block normalised
+    with its log-scale, and the log-scale of the environment on the other
+    side."""
+    env = cfg.env_precision
+    if forward:
+        site_out, sig = K.qr_right(psi_new)
+        renorm = {"high": CR.renorm_left_hi, "default": CR.renorm_left_lo
+                  }.get(env, K.renorm_block_left)
+        raw = renorm(L, site_out, W, site_out)
+        l_sys, l_env = lL, lR
+    else:
+        sig, site_out = K.lq_left(psi_new)
+        renorm = {"high": CR.renorm_right_hi, "default": CR.renorm_right_lo
+                  }.get(env, K.renorm_block_right)
+        raw = renorm(R, site_out, W, site_out)
+        l_sys, l_env = lR, lL
+    block, dl = _normalize_block(raw)
+    return site_out, sig, block, l_sys + dl, l_env
+
+
+def _improved_site_step(psi, nxt, L, W, R, lL, lR, *, cfg, forward, last):
+    """One site of improved relaxation (the JAX package's ``mode ==
+    "improved"``): the site becomes the lowest eigenvector of H_eff by
+    restarted Lanczos from itself, then the gauge moves on with no K step
+    (the bond matrix is absorbed as it is) and the norm is left alone.
+    The ground state runs as one ``cuda_lanczos.ground_state`` call where
+    ``gs_fits`` takes the site (the kernel on the card), else
+    ``integrator.ground_state_multi`` over the einsum matvec.  Returns
+    :func:`_site_step`'s tuple, ``stats`` holding ``[Lanczos iterations,
+    0]``, and the ground state's ``[passes, iterations, breakdowns]``
+    status."""
+    l, d, r = psi.shape
+    hfac = torch.exp(lL + lR)
+    if CL.gs_fits((l * d, r), W.shape[-1]):
+        ch = CL.heff_channels(L, W, R, hfac)
+        out, gs = CL.ground_state(ch, psi.reshape(l * d, r).contiguous())
+    else:
+        def mv(x):
+            return (K.heff_apply(L, W, R, x.reshape(l, d, r)) * hfac
+                    ).reshape(-1)
+        out, gs = ground_state_multi(mv, psi.reshape(-1))
+    psi_new = out.reshape(l, d, r)
+    stats = [torch.stack([gs[1], torch.zeros_like(gs[1])])]
+    if last:
+        return psi_new, None, None, stats, [], gs
+    site_out, sig, block, log_new, _ = _gauge_move(
+        psi_new, L, W, R, lL, lR, cfg=cfg, forward=forward)
+    psi_next = K.absorb_right(sig, nxt) if forward else K.absorb_left(nxt, sig)
+    return site_out, psi_next, (block, log_new), stats, [], gs
+
+
 class TDVPEngine:
     """Holds the MPS cores, fused MPO and cached environments; sweeps.
 
@@ -245,11 +314,6 @@ class TDVPEngine:
     """
 
     def __init__(self, cores, hamiltonian, config: Config, device="cuda"):
-        if config.relax != "none":
-            raise NotImplementedError(
-                f"relax={config.relax!r}: relaxation is not ported yet "
-                "(ROADMAP A7)"
-            )
         if config.splitting != "lt2":
             raise NotImplementedError(
                 f"splitting={config.splitting!r}: 4th-order compositions "
@@ -291,6 +355,12 @@ class TDVPEngine:
         self._kry_sum: torch.Tensor | None = None
         self._kry_calls = 0
         self._kry_warned = False
+        #: improved relaxation's ground-state telemetry on the device
+        #: (int32): [Σ passes, Σ Lanczos iterations, Σ breakdowns], then
+        #: the number of calls that ran each pass count 0..GS_MAX_RESTARTS
+        #: (:meth:`ground_state_stats`)
+        self._gs_tally = torch.zeros(GS_MAX_RESTARTS + 4, dtype=torch.int32,
+                                     device=self.device)
         #: running max gauge deviation (pytest_enabled self-checks)
         self._gauge_dev: torch.Tensor | None = None
         #: which half-sweep built ``env_stack``: "right" after a backward
@@ -387,17 +457,24 @@ class TDVPEngine:
         sys_stack = [(sys_block, sys_log)]
         cores = self.cores[0]
         order = range(self.nsite) if forward else range(self.nsite - 1, -1, -1)
-        stats, relaxed = [], []
+        stats, relaxed, gs = [], [], []
         for pos, p in enumerate(order):
             last = pos == self.nsite - 1
             env_block, env_log = env_stack.pop()
             q = p + 1 if forward else p - 1
             L, lL = (sys_block, sys_log) if forward else (env_block, env_log)
             R, lR = (env_block, env_log) if forward else (sys_block, sys_log)
-            site_out, psi_next, new, st, rel = _site_step(
-                cores[p], None if last else cores[q], L, self.W[p], R, scale,
-                lL, lR, cfg=cfg, forward=forward, last=last,
-            )
+            if cfg.relax == "improved":
+                site_out, psi_next, new, st, rel, g = _improved_site_step(
+                    cores[p], None if last else cores[q], L, self.W[p], R,
+                    lL, lR, cfg=cfg, forward=forward, last=last,
+                )
+                gs.append(g)
+            else:
+                site_out, psi_next, new, st, rel = _site_step(
+                    cores[p], None if last else cores[q], L, self.W[p], R,
+                    scale, lL, lR, cfg=cfg, forward=forward, last=last,
+                )
             stats += st
             relaxed += rel
             cores[p] = site_out
@@ -419,6 +496,12 @@ class TDVPEngine:
         acc = torch.cat([torch.stack(stats).sum(0), rel.to(torch.int32)])
         self._kry_sum = acc if self._kry_sum is None else self._kry_sum + acc
         self._kry_calls += len(stats)
+        if gs:
+            g = torch.stack(gs)
+            hist = torch.zeros(GS_MAX_RESTARTS + 1, dtype=torch.int32,
+                               device=self.device)
+            hist.index_add_(0, g[:, 0].long(), torch.ones_like(g[:, 0]))
+            self._gs_tally = self._gs_tally + torch.cat([g.sum(0), hist])
 
     def propagate(
         self, dt: float, one_gate_to_apply=None, kraus_op=None
@@ -429,7 +512,7 @@ class TDVPEngine:
                 "one-site gates and Kraus maps are not ported yet "
                 "(ROADMAP A10)"
             )
-        self._step(-0.5j * dt)
+        self._step(step_scale(self.config, dt))
         self.eager_steps += 1
         self._check_gauge()
 
@@ -459,8 +542,16 @@ class TDVPEngine:
         control on the device, its iterations IF nodes of the graph), the
         MGS and CholeskyQR³ gauges.  The Krylov control kernel takes
         ``max_krylov`` up to ``cuda_krylov.MAX_KRYLOV``; beyond, a block runs
-        step by step.  The answer does not depend on the device: on the CPU
+        step by step.  Imaginary time runs the same routes.  Improved
+        relaxation is captured only where every site takes the ground-state
+        kernel (``cuda_lanczos.gs_fits``): the einsum route reads one flag
+        a restart.  The answer does not depend on the device: on the CPU
         it selects the same buffer program, run uncaptured."""
+        if self.config.relax == "improved":
+            return all(
+                CL.gs_fits((c.shape[0] * c.shape[1], c.shape[2]),
+                           w.shape[-1])
+                for c, w in zip(self.cores[0], self.W))
         return self.config.max_krylov <= CK.MAX_KRYLOV
 
     def _ensure_right_stack(self) -> None:
@@ -522,7 +613,7 @@ class TDVPEngine:
         plan = layout = None
         if nsteps <= 0:
             return rows, plan, layout
-        scale = -0.5j * dt
+        scale = step_scale(self.config, dt)
         self._ensure_right_stack()
         real = self.fetch_real_dtype()
 
@@ -773,6 +864,78 @@ class TDVPEngine:
             S = K.ovlp_left_conj(S, a, b)
         return complex(S[0, 0])
 
+    # ------------------------------------------------- operator fitting
+    def apply_operator_fit(
+        self, operator, maxiter: int = 10, conv_tol: float = 1.0e-08
+    ) -> float:
+        """Variationally fit |Φ⟩ ≈ O|Ψ⟩ by alternating sweeps (the JAX
+        package's ``apply_operator_fit``; upstream PyTDSCF's
+        ``apply_dipole``).
+
+        The current MPS becomes the (normalised) fit, with its centre at
+        site 0; the norm ‖O|Ψ⟩‖ in the fitted subspace is returned.  The
+        operator's own fused MPO is built here, so its width is its own.
+        Each site reads its norm back to the host, and each pair of sweeps
+        the overlap with the previous fit (the convergence test), as in
+        the JAX package: an operator is applied once per workflow."""
+        W = (self.W if operator is self.hamiltonian
+             else self._fused_cores(operator))
+        ket = [list(self.cores[0])]  # Ψ0, gauge-moved along with the fit
+        norm = 0.0
+        for _ in range(maxiter):
+            prev = [list(self.cores[0])]
+            norm = self._fit_half_sweep(W, ket, forward=True)
+            norm = self._fit_half_sweep(W, ket, forward=False)
+            if abs(1.0 - abs(self.overlap_conj(prev))) < conv_tol:
+                break
+        self.invalidate_env()
+        return norm
+
+    def _fit_half_sweep(self, W, ket, forward: bool) -> float:
+        """One half-sweep of :meth:`apply_operator_fit`: each site of the
+        fit becomes ``O_eff`` applied to Ψ0's site (``heff_apply`` between
+        the blocks of ⟨Φ|O|Ψ0⟩), normalised, and both chains move their
+        gauge on (``qr_right``/``lq_left``: the MGS kernel on the card).
+        Returns the last site's norm."""
+        nsite = self.nsite
+        phi, psi0 = self.cores[0], ket[0]
+        one = torch.ones((1, 1, 1), dtype=self.dtype, device=self.device)
+        env_stack = [one]
+        env_rng = range(nsite - 1, 0, -1) if forward else range(nsite - 1)
+        for p in env_rng:
+            renorm = K.renorm_block_right if forward else K.renorm_block_left
+            env_stack.append(renorm(env_stack[-1], phi[p], W[p], psi0[p]))
+        sys_block = one
+        order = range(nsite) if forward else range(nsite - 1, -1, -1)
+        norm = 0.0
+        for p in order:
+            env_block = env_stack.pop()
+            L, R = (sys_block, env_block) if forward else (env_block, sys_block)
+            new = K.heff_apply(L, W[p], R, psi0[p])
+            # the site's one host read
+            norm = float(torch.linalg.vector_norm(new))
+            phi[p] = new / norm
+            if p == (nsite - 1 if forward else 0):
+                break
+            q = p + 1 if forward else p - 1
+            for chain in (phi, psi0):
+                if forward:
+                    a, sig = K.qr_right(chain[p])
+                    chain[p] = a
+                    chain[q] = K.absorb_right(sig, chain[q])
+                else:
+                    sig, b = K.lq_left(chain[p])
+                    chain[p] = b
+                    chain[q] = K.absorb_left(chain[q], sig)
+            renorm = K.renorm_block_left if forward else K.renorm_block_right
+            sys_block = renorm(sys_block, phi[p], W[p], psi0[p])
+        return norm
+
+    def invalidate_env(self) -> None:
+        """Drop the environment stack: the next sweep rebuilds it."""
+        self.env_stack = None
+        self._env_side = None
+
     def norm(self) -> float:
         if self.config.space == "liouville":
             return abs(self.trace())
@@ -853,11 +1016,26 @@ class TDVPEngine:
             [[c.to(self.device, self.dtype) for c in other.cores[0]]])
         return math.sqrt(max(n1 + n2 - 2.0 * ov.real, 0.0))
 
+    def ground_state_stats(self, reset: bool = True) -> dict:
+        """Improved relaxation's ground-state telemetry since the last
+        call (one host read): ``calls``, the ``passes``, Lanczos
+        ``iterations`` and ``breakdowns`` summed over them, and
+        ``passes_hist``, the number of calls that ran each pass count
+        (index 0..``GS_MAX_RESTARTS``)."""
+        t = self._gs_tally.tolist()
+        if reset:
+            self._gs_tally = torch.zeros_like(self._gs_tally)
+        hist = t[3:]
+        return {"calls": sum(hist), "passes": t[0], "iterations": t[1],
+                "breakdowns": t[2], "passes_hist": hist}
+
     def krylov_stats(self, reset: bool = True) -> tuple[float, int, int, int]:
         """(mean Krylov dim per call, # calls, # max-dim cap hits, # relaxed
         matvecs) since the last call (the reference's AVG-SIL-iterations
-        telemetry).  The relaxed matvecs are Σ max(k_used − relax_after, 0)
-        over the Krylov calls of a relaxed run, counted on the device by
+        telemetry; in improved relaxation each ground state counts as one
+        call of its Lanczos iterations).  The relaxed matvecs are
+        Σ max(k_used − relax_after, 0) over the Krylov calls of a relaxed
+        run, counted on the device by
         the Krylov control: the launches the ``cuda_matvec`` kernels should
         have counted on a card."""
         if self._kry_sum is None:

@@ -1,16 +1,22 @@
-"""Simulator: the user-facing driver (``propagate``), in PyTorch.
+"""Simulator: the user-facing entry point (relax / operate / propagate), in PyTorch.
 
 The counterpart of the JAX package's ``simulator.py`` for the one-state MPS
-of the ported engine: ``Simulator(jobname, model).propagate(...)`` with the
-same signature, time units (fs), jobname conventions (``{jobname}_prop``),
-wavefunction backup files, ``.dat`` outputs and return value ``(energy,
-wavefunction)``.  It takes ``device``, the card unless the caller asks for
-the CPU, and computes in complex64 on the card and complex128 on the CPU
-unless ``dtype`` says otherwise.
+of the ported engine: ``Simulator(jobname, model).relax(...)``,
+``.operate(...)`` and ``.propagate(...)`` with the same signatures, time
+units (fs), jobname conventions (``{jobname}_relax``, ``_operate``,
+``_prop``), wavefunction backup files (``wf_{jobname}_gs.pkl`` after
+``relax``, ``wf_{jobname}_operate.pkl`` after ``operate``, which
+``propagate(restart=True)`` reads), ``.dat`` outputs and return values
+(``(energy, wavefunction)``, ``operate``: ``(norm, wavefunction)``).  It
+takes ``device``, the card unless the caller asks for the CPU, and
+computes in complex64 on the card and complex128 on the CPU unless
+``dtype`` says otherwise.  The IR-spectrum workflow (relax, apply the
+dipole μ·E, propagate, Fourier-transform the autocorrelation with
+``spectra``) runs whole.
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
-``relax`` and ``operate`` (A7), the ground-state projection ``proj_gs``
-(it needs ``basis/op_matrix``, A7), adaptive bond dimension (A9),
+several electronic states and the ground-state projection ``proj_gs``
+with its primitive-integral tables (A3), adaptive bond dimension (A9),
 the 4th-order splittings, one-site gates, Kraus maps and time-dependent
 Hamiltonians (A10), MCTDH, the MPS-MCTDH hybrid and CMF (A12), and the
 multi-device engines (A13).  The JAX package's advisory about small models
@@ -109,8 +115,8 @@ class Simulator:
             raise NotImplementedError(f"unknown ci_type {ci_type}")
         if proj_gs:
             raise _not_ported(
-                "proj_gs (the ground-state projection needs basis/op_matrix)",
-                "A7")
+                "proj_gs (the ground-state projection and its primitive "
+                "integrals)", "A3")
         self.proj_gs = proj_gs
 
     # ------------------------------------------------------------------
@@ -213,11 +219,80 @@ class Simulator:
             populations_per_step=populations_per_step,
         )
 
-    def relax(self, *args, **kwargs):
-        raise _not_ported("Simulator.relax", "A7")
+    def relax(
+        self,
+        stepsize: float = 0.1,
+        maxstep: int = 20,
+        improved: bool = True,
+        restart: bool = False,
+        savefile_ext: str = "_gs",
+        loadfile_ext: str = "",
+        backup_interval: int = 10,
+        norm: bool = True,
+        populations: bool = True,
+        observables: bool = False,
+        integrator: Literal["lanczos", "arnoldi"] = "lanczos",
+        matvec_precision: Literal["highest", "high", "default"] = "highest",
+        display_time_unit: Literal["fs", "ps", "au"] = "fs",
+    ) -> tuple[Any, WaveFunction]:
+        """Relax to the ground state: improved relaxation (each site the
+        lowest eigenvector of H_eff, ``Config.relax="improved"``) or
+        imaginary time (``"imaginary"``), ``maxstep`` sweeps of
+        ``stepsize`` fs, one host-driven step at a time (``fetch_stride``
+        1, as in the JAX package).  Saves ``wf_{jobname}{savefile_ext}.pkl``
+        and returns the last ⟨H⟩ with the wavefunction."""
+        dt_au = stepsize / units.au_in_fs
+        config = Config(
+            jobname=self.jobname + "_relax",
+            dtype=self._auto_dtype(),
+            relax="improved" if improved else "imaginary",
+            integrator=integrator,
+            matvec_precision=matvec_precision,
+            space=self.model.space,
+            display_time_unit=display_time_unit,
+        )
+        return self._execute(
+            config,
+            dt_au,
+            maxstep,
+            restart=restart,
+            savefile_ext=savefile_ext,
+            loadfile_ext=loadfile_ext,
+            backup_interval=backup_interval,
+            autocorr=False,
+            energy=True,
+            norm=norm,
+            populations=populations,
+            observables=observables,
+        )
 
-    def operate(self, *args, **kwargs):
-        raise _not_ported("Simulator.operate", "A7")
+    def operate(
+        self,
+        maxstep: int = 10,
+        restart: bool = False,
+        savefile_ext: str = "_operate",
+        loadfile_ext: str = "_gs",
+        verbose: int = 2,
+    ) -> tuple[float, WaveFunction]:
+        """Apply the model's operator (the dipole μ·E of an IR spectrum) to
+        the wavefunction by variational fitting (``TDVPEngine.
+        apply_operator_fit``, at most ``maxstep`` pairs of sweeps).  Saves
+        ``wf_{jobname}{savefile_ext}.pkl`` and returns ‖O|Ψ⟩‖ with the
+        (normalised) fitted wavefunction."""
+        config = Config(
+            jobname=self.jobname + "_operate",
+            dtype=self._auto_dtype(),
+            apply_dipole=True,
+            space=self.model.space,
+        )
+        logger = get_logger(config.jobname, verbose)
+        engine = self._initial_engine(config, restart, loadfile_ext)
+        logger.info("Start: apply operator to wave function")
+        norm = engine.apply_operator_fit(self.model.hamiltonian, maxiter=maxstep)
+        wf = WaveFunction(engine, self.model)
+        self._save(engine, config.jobname, savefile_ext)
+        logger.info("End  : apply operator to wave function")
+        return norm, wf
 
     # ------------------------------------------------------------------
     def _auto_dtype(self) -> str:
@@ -310,7 +385,7 @@ class Simulator:
         port's slices use none."""
         if getattr(self.model, "ints_prim_file", None) is None:
             return None
-        raise _not_ported("primitive-integral tables (ints_prim_file)", "A7")
+        raise _not_ported("primitive-integral tables (ints_prim_file)", "A3")
 
     def _save(self, engine, jobname: str, ext: str) -> None:
         path = f"wf_{self.jobname}{ext}.pkl"

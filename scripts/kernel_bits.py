@@ -12,7 +12,10 @@ its only one in both), the MGS QR at (240, 30)
 full rank and rank deficient and at (1024, 64), the relaxed matvecs
 ``heff_lo`` and ``keff_lo`` and the bf16x3 chain in its four mappings
 (``chain_left``, ``chain_right``, ``chain_heff``, ``chain_keff``) at the
-χ=1024 radical pair's bulk shape and a ragged one.  ``compare`` exits 1
+χ=1024 radical pair's bulk shape and a ragged one; then the earlier
+main paths end to end (``path_*``: the chain's ⟨H⟩ and cores and the
+radical pair's populations at both rungs after three steps, each built by
+ROOT's own ``chip_smoke.py``).  ``compare`` exits 1
 unless two such files are equal bit for bit, except for the outputs named
 by ``--expect-differ`` (comma-separated prefixes of output names), which
 may differ or be missing from one file.  On a machine with an NVIDIA
@@ -35,6 +38,10 @@ import sys
 from pathlib import Path
 
 import numpy as np
+
+
+#: Steps of each earlier path that ``dump`` runs end to end
+PATH_STEPS = 3
 
 
 def _cx(rng, *shape):
@@ -121,10 +128,43 @@ def dump(root: str, path: str) -> None:
         res[f"chain_heff_{tag}"] = out.cpu().numpy()
         out = CR.keff_hi(CR.keff_operands(L, R), t(_cx(rng, k, o)))
         res[f"chain_keff_{tag}"] = out.cpu().numpy()
+    res.update(_paths())
     torch.cuda.synchronize()
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **res)
     print(f"kernel_bits: {len(res)} outputs of {root} in {path}")
+
+
+def _paths() -> dict:
+    """The earlier main paths end to end, built by the tree's own
+    ``chip_smoke.py``: the 184-site chain after PATH_STEPS host-driven
+    steps (its ⟨H⟩ contracted in complex128, and its cores) and the χ=1024
+    radical pair at each rung after PATH_STEPS (its electron
+    populations, as ``tests/torch_rp_drift.py`` reads them)."""
+    import chip_smoke as S
+    import torch
+
+    from pytdscf_torch import units
+
+    res = {}
+    engine = S.build_engine("cuda")
+    for _ in range(PATH_STEPS):
+        engine.propagate(S.DT_FS / units.au_in_fs)
+    res["path_chain_energy"] = np.asarray(S.energy64(engine))
+    res["path_chain_cores"] = np.concatenate(
+        [c.reshape(-1).cpu().numpy() for c in engine.cores[0]])
+    del engine
+    for preset in ("balanced", "throughput"):
+        torch.cuda.empty_cache()
+        engine, ele = S.build_rp_engine("cuda", preset)
+        engine.right_canonicalize()
+        for _ in range(PATH_STEPS):
+            engine.propagate(S.RP_DT)
+        rdm = engine.reduced_density_liouville((0,) * ele + (2, 2))
+        res[f"path_rp_{preset}_pops"] = np.real(
+            np.einsum("aabb->ab", rdm)).reshape(-1)
+        del engine
+    return res
 
 
 def compare(a: str, b: str, expect_differ: tuple[str, ...] = ()) -> int:

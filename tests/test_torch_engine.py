@@ -130,8 +130,6 @@ def test_convert_round_trip():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("relax", "imaginary", "A7"),
-    ("relax", "improved", "A7"),
     ("splitting", "suzuki4", "A10"),
     ("splitting", "yoshida4", "A10"),
 ])

@@ -6,6 +6,11 @@ without JAX; the Liouville copies are held to theirs in
 ``tests/test_torch_liouville.py``.  These tests hold the copies to the originals, and
 check that the port really loads neither JAX nor ``pytdscf_tpu``.
 
+The IR-spectrum workflow's host modules (``basis/op_matrix``,
+``operators/sop``, ``potentials``, ``spectra``) are held to theirs bit for
+bit on their outputs (the H2O and butadiene Hamiltonian and dipole fused
+MPOs, the tables, the spectrum of the H2O fixture) and line for line.
+
 The Simulator's host modules (``_logging``, ``diagnostics``, ``util/nc4``,
 ``properties``, ``simulator``) are held to theirs line for line: each
 copied function has the original's lines (package name aside), apart from
@@ -102,6 +107,8 @@ def test_port_imports_without_jax():
         "import pytdscf_torch, pytdscf_torch.convert, pytdscf_torch.mps.tdvp\n"
         "import pytdscf_torch.mps.integrator, pytdscf_torch.models\n"
         "import pytdscf_torch.model, pytdscf_torch.mps.cuda_matvec\n"
+        "import pytdscf_torch.spectra, pytdscf_torch.potentials\n"
+        "import pytdscf_torch.operators.sop, pytdscf_torch.basis.op_matrix\n"
         "bad = [m for m in sys.modules if m.startswith('pytdscf_tpu')\n"
         "       or (m.split('.')[0] == 'jax' and sys.modules[m] is not None)]\n"
         "assert not bad, bad\n"
@@ -156,6 +163,15 @@ def _defs(path: str) -> dict[str, list[str]]:
 #: advisory)
 COPIES = [
     ("pytdscf_tpu/diagnostics.py", "pytdscf_torch/diagnostics.py", {}),
+    ("pytdscf_tpu/basis/op_matrix.py", "pytdscf_torch/basis/op_matrix.py",
+     {}),
+    ("pytdscf_tpu/operators/sop.py", "pytdscf_torch/operators/sop.py", {}),
+    ("pytdscf_tpu/potentials/_tables.py", "pytdscf_torch/potentials/_tables.py",
+     {}),
+    # a complex64 run writes a(0) to ~1e-6 (spectra.A0_TOL, ROADMAP C5)
+    ("pytdscf_tpu/spectra.py", "pytdscf_torch/spectra.py", {
+        "load_autocorr": ["if abs(autocorr[0] - 1.0) > A0_TOL:"],
+    }),
     ("pytdscf_tpu/_logging.py", "pytdscf_torch/_logging.py", {
         "_process_index": [
             '"""Multi-host process index (the reference\'s MPI rank analogue): the',
@@ -231,3 +247,94 @@ def test_host_copies_line_for_line(jax_path, port_path, added):
             continue
         new = [ln for ln in lines if ln not in ref[name]]
         assert sorted(new) == sorted(added[name]), (name, new)
+
+
+# ------------------------------------------------ the IR-spectrum workflow
+def _ir_models(pkg: str, molecule: str):
+    """(H, μ·E) SOPs and the primitive bases of a workflow, built by the
+    port (``pkg`` "torch") or the JAX package ("tpu")."""
+    import importlib
+    import math
+
+    units = importlib.import_module(f"pytdscf_{pkg}.units")
+    sop = importlib.import_module(f"pytdscf_{pkg}.operators.sop")
+    pot = importlib.import_module(f"pytdscf_{pkg}.potentials")
+    ho = importlib.import_module(f"pytdscf_{pkg}.basis.ho")
+    if molecule == "h2o":
+        k_orig, mu, modes, nprim, active = (pot.h2o_k_orig, pot.h2o_mu,
+                                            [1, 2, 3], 9, None)
+    else:
+        k_orig = pot.load("c4h6_local_potential")["k_orig"]
+        mu = pot.load("c4h6_local_dipole")["mu"]
+        modes = sorted({i for key in k_orig for i in key})
+        nprim, active = 6, modes
+    prim = [ho.PrimBas_HO(0.0, math.sqrt(k_orig[(m, m)]) * units.au_in_cm1,
+                          nprim) for m in modes]
+    ham = sop.read_potential_nMR(k_orig)
+    dip = sop.read_potential_nMR(None, dipole_emu=mu,
+                                 efield=(1e-2, 1e-2, 1e-2),
+                                 active_modes=active)
+    return ham, dip, prim
+
+
+@pytest.mark.parametrize("molecule", ["h2o", "c4h6"])
+def test_sop_fused_mpos_identical(molecule):
+    """The Hamiltonian and dipole SOPs compile to the same fused MPO, bit
+    for bit, through the port's copies and the JAX package's modules."""
+    from pytdscf_torch.model import BasInfo as TBas
+    from pytdscf_tpu.model import BasInfo as JBas
+
+    t_ham, t_dip, t_prim = _ir_models("torch", molecule)
+    j_ham, j_dip, j_prim = _ir_models("tpu", molecule)
+    phys = [b.nprim for b in t_prim]
+    for t_op, j_op in ((t_ham, j_ham), (t_dip, j_dip)):
+        t_op.bind_basis(TBas([t_prim]))
+        j_op.bind_basis(JBas([j_prim]))
+        tf, jf = t_op.fused_mpo(phys)[0][0], j_op.fused_mpo(phys)[0][0]
+        assert len(tf) == len(jf) == len(phys)
+        for a, b in zip(tf, jf):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert np.array_equal(a, b)
+
+
+def test_op_matrix_identical():
+    from pytdscf_torch.basis.ho import PrimBas_HO as TP
+    from pytdscf_torch.basis.op_matrix import op_matrix as t_op
+    from pytdscf_tpu.basis.ho import PrimBas_HO as JP
+    from pytdscf_tpu.basis.op_matrix import op_matrix as j_op
+
+    for key in ("ovlp", "q^1", "q^3", "d^1", "d^2"):
+        for args in ((0.0, 1500.0, 7), (0.3, 1200.0, 6)):
+            got = t_op(TP(*args), TP(0.0, 1500.0, 7), key)
+            want = j_op(JP(*args), JP(0.0, 1500.0, 7), key)
+            assert np.array_equal(got, want), key
+
+
+def test_potential_tables_identical():
+    from pytdscf_torch import potentials as tp
+    from pytdscf_tpu import potentials as jp
+
+    assert tp.h2o_k_orig == jp.h2o_k_orig and tp.h2o_mu == jp.h2o_mu
+    for table in tp.TABLES:
+        assert tp.load(table) == jp.load(table)
+
+
+def test_spectra_identical(tmp_path):
+    from pytdscf_torch import spectra as ts
+    from pytdscf_tpu import spectra as js
+
+    path = os.path.join(REPO, "tests", "fixtures", "autocorr.dat")
+    t_t, a_t = ts.load_autocorr(path)
+    t_j, a_j = js.load_autocorr(path)
+    assert np.array_equal(t_t, t_j) and np.array_equal(a_t, a_j)
+    for window in ("cos2", "cos", None):
+        for power in (False, True):
+            got = ts.ifft_autocorr(t_t, a_t, E_shift=0.5, window=window,
+                                   power=power)
+            want = js.ifft_autocorr(t_j, a_j, E_shift=0.5, window=window,
+                                    power=power)
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    freq, inten = ts.ifft_autocorr(t_t, a_t)
+    ts.export_spectrum(freq, inten, str(tmp_path / "t.dat"))
+    js.export_spectrum(freq, inten, str(tmp_path / "j.dat"))
+    assert (tmp_path / "t.dat").read_text() == (tmp_path / "j.dat").read_text()

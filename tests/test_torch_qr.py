@@ -98,6 +98,48 @@ def test_plain_rank1_plus_tail():
     assert float(torch.linalg.matrix_norm(q @ r - m)) < 1e-5
 
 
+def _completion_case(delta: float, dtype) -> torch.Tensor:
+    """A (4, 3) matrix whose dead column 1 is completed from e_1: column 0
+    is e_1 + δ·e_3 (normalised), so e_1 keeps a residual of ≈ δ against
+    it (δ = 0: e_1 lies in its span); column 2 is live."""
+    m = np.zeros((4, 3), dtype=np.complex128)
+    m[1, 0], m[3, 0] = 1.0, delta
+    m[:, 0] /= np.linalg.norm(m[:, 0])
+    m[:, 2] = [0.3, 0.1j, 0.5, -0.2]
+    return torch.from_numpy(m).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_plain_completion_past_the_span(dtype):
+    """e_{k mod N} in the span of the earlier columns leaves no residual:
+    the completion scans on to e_2 (ROADMAP C4), orthonormal, zero R
+    diagonal, Q·R = m."""
+    m = _completion_case(0.0, dtype)
+    q, r = CQ.mgs_qr_plain(m)
+    want = torch.zeros(4, dtype=dtype)
+    want[2] = 1.0
+    assert torch.allclose(q[:, 1], want, atol=1e-6)
+    assert abs(complex(r[1, 1])) == 0.0
+    eye = torch.eye(3, dtype=dtype)
+    assert float(torch.linalg.matrix_norm(eye - q.conj().T @ q)) < 1e-6
+    assert float(torch.linalg.matrix_norm(q @ r - m)) < 1e-6
+
+
+@pytest.mark.parametrize("delta", [1.0e-03, 1.0e-05])
+def test_plain_completion_above_the_noise_floor_is_jax(jx, delta):
+    """A residual above the float32 noise floor (16·eps·√N = 3.8e-6 at
+    N = 4) keeps the JAX package's completion e_{k mod N}: the same Q as
+    ``pallas_qr.mgs_qr_fused`` (to 1e-5), orthonormal to 1e-6 (the second
+    pass makes it so even at δ = 1e-5)."""
+    assert CQ.completion_tol(torch.complex64, 4) < delta
+    m = _completion_case(delta, torch.complex64).numpy()
+    q, r, q_j, r_j = _both(jx, m)
+    assert np.abs(q - q_j).max() < 1e-5
+    assert abs(q[3, 1]) > 0.99  # e_1 less its part along column 0
+    assert np.linalg.norm(np.eye(3) - q.conj().T @ q) < 1e-6
+    assert np.linalg.norm(q @ r - m) < 1e-6
+
+
 def test_route_by_shape():
     """Every MGS shape of the 184-site chain takes the one-block route (the
     kernel it had before the cluster route); the radical pair's (1024, 64)
@@ -164,6 +206,20 @@ def test_kernel_matches_plain_on_card(cuda, shape, dead):
            r_ref.cpu().numpy())
     for k in dead:
         assert abs(complex(r[k, k])) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [0.0, 1.0e-05, 1.0e-03])
+def test_kernel_completion_matches_plain_on_card(cuda, delta):
+    """The kernel's completion bar is the plain version's: it scans past a
+    canonical vector in the span (δ = 0) and keeps one above the noise
+    floor."""
+    m = _completion_case(delta, torch.complex64).to(cuda)
+    q, r = CQ.mgs_qr(m)
+    q_ref, r_ref = CQ.mgs_qr_plain(m)
+    torch.cuda.synchronize()
+    assert float((q - q_ref).abs().max()) < 1e-6
+    assert float((r - r_ref).abs().max()) < 1e-6
 
 
 @pytest.mark.cuda

@@ -191,13 +191,27 @@ def test_refused_options_name_their_item(in_tmp, make, kw, item):
 
 
 @pytest.mark.parametrize("call", ["relax", "operate", "proj_gs"])
-def test_relax_operate_and_proj_gs_raise(call):
-    model = _model(singlet_fission_chain, Model)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        if call == "proj_gs":
-            Simulator("r", model, proj_gs=True, device="cpu")
-        else:
-            getattr(Simulator("r", model, device="cpu"), call)()
+def test_relax_operate_and_proj_gs_raise(call, in_tmp):
+    """``relax`` and ``operate`` run for one electronic state
+    (``tests/test_torch_relax.py``, ``tests/test_torch_workflow.py``); on
+    a two-state model they raise, as ``proj_gs`` does, naming A3."""
+    if call == "proj_gs":
+        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+            Simulator("r", _model(singlet_fission_chain, Model),
+                      proj_gs=True, device="cpu")
+        return
+    from pytdscf_torch.basis.ho import PrimBas_HO
+    from pytdscf_torch.model import BasInfo
+    from pytdscf_torch.operators.sop import PolynomialHamiltonian
+
+    basinfo = BasInfo([[PrimBas_HO(0.0, 1000.0, 4) for _ in range(2)]
+                       for _ in range(2)])
+    ham = PolynomialHamiltonian(2, nstate=2,
+                                matJ=[[0.0, 1.0e-3], [1.0e-3, 1.0e-2]])
+    ham.set_HO_potential(basinfo)
+    model = Model(basinfo, {"hamiltonian": ham}, bond_dim=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        getattr(Simulator("r", model, device="cpu"), call)()
 
 
 def test_reduced_density_without_h5py_fails_before_any_step(in_tmp,
