@@ -1,12 +1,10 @@
 """Compressed PES / dipole-surface data tables.
 
-A copy of the JAX package's ``potentials/_tables.py`` with two of its
-tables, the butadiene (C4H6) local-mode surface and dipole
-(``data/c4h6_local_potential.npz``, ``data/c4h6_local_dipole.npz``).
-Upstream PyTDSCF ships them as generated Python modules
-(``pytdscf/potentials/c4h6_local_potential.py``); here the same physical
-data — Taylor force constants in Hartree atomic units, dipole derivatives
-with 3-vector values, 1-based mode indices — is stored as compressed npz
+The reference ships these as multi-megabyte generated Python modules
+(``PyTDSCF:pytdscf/potentials/*.py``, e.g.
+``c14h16_local_potential.py`` at ~2 MB); here the same physical data —
+Taylor force constants in Hartree atomic units, dipole derivatives with
+3-vector values, 1-based mode indices — is stored as compressed npz
 (keys padded to the max order with −1) and rebuilt into the identical
 ``{tuple: float}`` / ``{tuple: [x, y, z]}`` dicts on load.
 """
@@ -20,7 +18,14 @@ import numpy as np
 
 _DATA = os.path.join(os.path.dirname(__file__), "data")
 
-TABLES = ("c4h6_local_potential", "c4h6_local_dipole")
+TABLES = (
+    "c2h4_potential",
+    "c4h6_local_potential", "c4h6_local_dipole",
+    "c6h8_local_potential", "c6h8_potential", "c6h8_local_dipole",
+    "c8h10_local_potential", "c10h12_local_potential",
+    "c12h14_local_potential", "c14h16_local_potential",
+    "wat3_potential", "wat3_dipole", "wat6_potential", "wat6_dipole",
+)
 
 
 def _unpack_keys(karr: np.ndarray) -> list[tuple[int, ...]]:

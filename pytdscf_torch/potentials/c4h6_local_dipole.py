@@ -1,0 +1,6 @@
+"""Data shim: see pytdscf_torch/potentials/_tables.py (reference
+pytdscf/potentials/c4h6_local_dipole.py)."""
+from pytdscf_torch.potentials._tables import load as _load
+
+globals().update(_load("c4h6_local_dipole"))
+del _load

@@ -17,6 +17,18 @@ copied function has the original's lines (package name aside), apart from
 the documented cuts (lines dropped) and the lines listed here as added.
 Their behaviour is held to the JAX package's in
 ``tests/test_torch_simulator.py``.
+
+The one-state models' host modules (the model builders ``pyrazine``,
+``donor_acceptor`` and ``lh2``; the DVR layer ``basis/sin``,
+``basis/exponential``, ``operators/dvr`` and ``ase_handler``; the
+potential tables and their shims; ``util/read_nc``, ``converters``,
+``grid2qff`` and ``hess_util``) are whole-file copies: each file's lines
+are the original's, the package name and the upstream path prefix
+normalised (the only change in their import lines), apart from the lines
+listed in ``FILE_CHANGES``.  Their outputs are held bit for bit: each
+builder's fused MPO cores (the full models through a SHA-256 of each core,
+built in two worker processes at once), the DVR operators, bases and grid
+database, the tables.
 """
 
 from __future__ import annotations
@@ -36,8 +48,15 @@ from pytdscf_torch.mps.lattice import bond_dims_for_site as t_bonds
 from pytdscf_tpu.models.holstein import singlet_fission_chain as j_chain
 from pytdscf_tpu.mps.lattice import alloc_hartree_product as j_alloc
 from pytdscf_tpu.mps.lattice import bond_dims_for_site as j_bonds
+from torch_ported import one_blas_thread
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    with one_blas_thread():
+        yield
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -338,3 +357,215 @@ def test_spectra_identical(tmp_path):
     ts.export_spectrum(freq, inten, str(tmp_path / "t.dat"))
     js.export_spectrum(freq, inten, str(tmp_path / "j.dat"))
     assert (tmp_path / "t.dat").read_text() == (tmp_path / "j.dat").read_text()
+
+
+# ------------------------------------------------ the one-state models (A4)
+def _text(path: str) -> list[str]:
+    """A module's non-blank lines, stripped, with the package name and the
+    upstream path prefix normalised."""
+    import re
+
+    with open(os.path.join(REPO, path), encoding="utf-8") as fh:
+        text = fh.read().replace("pytdscf_tpu", "pytdscf_torch")
+    # the originals cite upstream PyTDSCF by a checkout path; the copies
+    # as ``PyTDSCF:<path>``
+    text = re.sub(r"/\w+/reference/", "PyTDSCF:", text)
+    return [ln.strip() for ln in text.splitlines() if ln.strip()]
+
+
+_SHIMS = [f"potentials/{t}.py" for t in (
+    "c2h4_potential", "c4h6_local_potential", "c4h6_local_dipole",
+    "c6h8_local_potential", "c6h8_potential", "c6h8_local_dipole",
+    "c8h10_local_potential", "c10h12_local_potential",
+    "c12h14_local_potential", "c14h16_local_potential", "wat3_potential",
+    "wat3_dipole", "wat6_potential", "wat6_dipole")]
+
+#: the whole-file copies, and the lines each port file adds and drops
+#: against its original (every other line is the original's, in order)
+FILE_CHANGES = {
+    **{f: ([], []) for f in (
+        "basis/__init__.py", "basis/exciton.py", "basis/sin.py",
+        "basis/exponential.py", "models/pyrazine.py",
+        "models/donor_acceptor.py", "models/lh2.py", "operators/dvr.py",
+        "operators/__init__.py", "ase_handler.py", "potentials/ch2o.py",
+        "potentials/_tables.py", "potentials/__init__.py",
+        "util/converters.py", "util/grid2qff.py", "util/hess_util.py",
+        *_SHIMS)},
+    # h5py imported where a file is read, so that the port imports where
+    # h5py is missing (the GPU machine), as util/nc4.py does
+    "util/read_nc.py": ([
+        "Reads both that and the legacy plain-complex HDF5 layout through h5py,",
+        "which is imported when a file is read, not with the module (as in",
+        "``util/nc4.py``): the port imports where h5py is missing.",
+        "import h5py  # here, not with the module: h5py may be missing",
+    ], [
+        "Reads both that and the legacy plain-complex HDF5 layout through h5py.",
+        "import h5py",
+    ]),
+}
+
+
+@pytest.mark.parametrize("path", sorted(FILE_CHANGES))
+def test_whole_file_copies(path):
+    import difflib
+
+    ref = _text(f"pytdscf_tpu/{path}")
+    port = _text(f"pytdscf_torch/{path}")
+    diff = list(difflib.ndiff(ref, port))
+    added = [ln[2:] for ln in diff if ln.startswith("+ ")]
+    dropped = [ln[2:] for ln in diff if ln.startswith("- ")]
+    assert (added, dropped) == FILE_CHANGES[path], path
+
+
+def _fused_cores(built):
+    basis, ham = built[0], built[1]
+    return ham.fused_mpo([b.nprim for b in basis])[0][0]
+
+
+def _assert_cores_identical(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("builder,kwargs", [
+    ("pyrazine.pyrazine_qvc", {"modes": [0, 1, 2, 5], "nprim": 6}),
+    ("pyrazine.pyrazine_qvc", {"nprim": 10}),
+    ("donor_acceptor.donor_acceptor", {"n_bath": 3, "nfock": 3}),
+    ("donor_acceptor.donor_acceptor_b",
+     {"n_frag": 2, "n_f": 1, "n_ot": 1, "nfock": 3}),
+    ("lh2.lh2_chain", {"nmol": 2, "modes": (6,), "nfock": 2}),
+], ids=["pyrazine4", "pyrazine24", "da_small", "da_b_small", "lh2_nmol2"])
+def test_model_builders_identical(builder, kwargs):
+    import importlib
+
+    module, name = builder.rsplit(".", 1)
+    t_out = getattr(importlib.import_module(
+        f"pytdscf_torch.models.{module}"), name)(**kwargs)
+    j_out = getattr(importlib.import_module(
+        f"pytdscf_tpu.models.{module}"), name)(**kwargs)
+    assert [b.nprim for b in t_out[0]] == [b.nprim for b in j_out[0]]
+    _assert_cores_identical(_fused_cores(t_out), _fused_cores(j_out))
+    if module == "lh2":
+        from pytdscf_torch.models.lh2 import lh2_initial_weights as tw
+        from pytdscf_tpu.models.lh2 import lh2_initial_weights as jw
+
+        assert t_out[2] == j_out[2]
+        for excite in (None, (1,)):
+            assert (tw(t_out[0], t_out[2], excite)
+                    == jw(j_out[0], j_out[2], excite))
+
+
+def test_full_models_identical(monkeypatch):
+    """The full donor–acceptor models (A: 101 sites; B: 114 sites, nfock
+    28, the smoke's model) fused bit for bit, through a SHA-256 of each
+    core, the JAX package's and the port's built in worker processes at
+    the same time, each on one BLAS thread (their ~54k small SVDs and QRs
+    run slower on more)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from torch_ported import fused_digest
+
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        monkeypatch.setenv(var, "1")  # read by the spawned workers
+    jobs = [("donor_acceptor.donor_acceptor", {"nfock": 28}),
+            ("donor_acceptor.donor_acceptor_b", {"nfock": 28})]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=2, mp_context=ctx) as pool:
+        futures = [(pool.submit(fused_digest, "torch", b, kw),
+                    pool.submit(fused_digest, "tpu", b, kw))
+                   for b, kw in jobs]
+        for (t_fut, j_fut), (builder, _) in zip(futures, jobs):
+            got, want = t_fut.result(timeout=600), j_fut.result(timeout=600)
+            assert len(got) in (101, 114)
+            assert got == want, builder
+
+
+def test_model_observables_identical():
+    import importlib
+
+    T = importlib.import_module("pytdscf_torch.models.donor_acceptor")
+    J = importlib.import_module("pytdscf_tpu.models.donor_acceptor")
+
+    t_basis, _ = T.donor_acceptor_b(n_frag=2, n_f=1, n_ot=1, nfock=3)
+    j_basis, _ = J.donor_acceptor_b(n_frag=2, n_f=1, n_ot=1, nfock=3)
+    phys = [b.nprim for b in t_basis]
+    for fn in ("electron_level_projectors", "mode_number_operators"):
+        t_ops = getattr(T, fn)(t_basis)
+        j_ops = getattr(J, fn)(j_basis)
+        assert list(t_ops) == list(j_ops)
+        for name in t_ops:
+            _assert_cores_identical(t_ops[name].fused_mpo(phys)[0][0],
+                                    j_ops[name].fused_mpo(phys)[0][0])
+
+
+def test_dvr_bases_identical():
+    import pytdscf_torch.basis as T
+    import pytdscf_tpu.basis as J
+
+    cases = [("HarmonicOscillator", (7, 1500.0)), ("Sine", (9, 3.0, -2.0)),
+             ("Exponential", (7, 2 * np.pi))]
+    for name, args in cases:
+        t, j = getattr(T, name)(*args), getattr(J, name)(*args)
+        for meth in ("get_grids", "get_unitary", "get_sqrt_weights",
+                     "get_pos_rep_matrix", "get_1st_derivative_matrix_dvr",
+                     "get_2nd_derivative_matrix_dvr",
+                     "get_2nd_derivative_matrix_fbr"):
+            assert np.array_equal(np.asarray(getattr(t, meth)()),
+                                  np.asarray(getattr(j, meth)())), (name, meth)
+
+
+def test_dvr_operators_identical(tmp_path):
+    """``construct_nMR_recursive`` from functions and from a grid
+    database (written by the port's ``DVR_Mesh``, read by both packages),
+    ``construct_fulldimensional`` and ``construct_kinetic_mpo``, bit for
+    bit; the database keys (``to_dbkey``) and its reading alike."""
+    import pytdscf_torch.operators.dvr as TD
+    import pytdscf_tpu.operators.dvr as JD
+    from pytdscf_torch.ase_handler import DVR_Mesh
+    from pytdscf_torch.basis import HarmonicOscillator as TH
+    from pytdscf_tpu.basis import HarmonicOscillator as JH
+
+    t_prims = [TH(5, 1500.0), TH(5, 3000.0)]
+    j_prims = [JH(5, 1500.0), JH(5, 3000.0)]
+    funcs = {(0,): lambda q: 1e-5 * q**2 + 1e-6 * q**3,
+             (1,): lambda q: 4e-5 * q**2,
+             (0, 1): lambda a, b: 1e-6 * (a * b**2 + a**2 * b)}
+    pairs = [(TD.construct_nMR_recursive(t_prims, nMR=2, func=funcs),
+              JD.construct_nMR_recursive(j_prims, nMR=2, func=funcs)),
+             (TD.construct_kinetic_mpo(t_prims),
+              JD.construct_kinetic_mpo(j_prims)),
+             (TD.construct_fulldimensional(
+                 t_prims, func=lambda a, b: 1e-5 * a**2 + 2e-5 * a * b),
+              JD.construct_fulldimensional(
+                  j_prims, func=lambda a, b: 1e-5 * a**2 + 2e-5 * a * b))]
+    db = str(tmp_path / "pes.db")
+    mesh = DVR_Mesh(t_prims)
+    mesh.save_geoms(db, nMR=2)
+    from pytdscf_torch.ase_handler import _write_result
+
+    for _, grids in mesh.mesh_points(nMR=2):  # the job runner's work
+        q = [float(mesh.grids[d][i]) for d, i in enumerate(grids)]
+        energy = funcs[(0,)](q[0]) + funcs[(1,)](q[1]) + funcs[(0, 1)](*q)
+        _write_result(db, TD.to_dbkey(grids), energy, None)
+    pairs.append((TD.construct_nMR_recursive(t_prims, nMR=2, db=db),
+                  JD.construct_nMR_recursive(j_prims, nMR=2, db=db)))
+    for got, want in pairs:
+        if isinstance(got, dict):  # {legs: TensorOperator} of the grid
+            (got,), (want,) = got.values(), want.values()
+            got, want = [got.tensor_orig], [want.tensor_orig]
+        _assert_cores_identical([np.asarray(c) for c in got],
+                                [np.asarray(c) for c in want])
+    t_df, j_df = TD.database_to_dataframe(db), JD.database_to_dataframe(db)
+    assert t_df.to_dict() == j_df.to_dict()
+    assert TD.to_dbkey((3, 0, 12)) == JD.to_dbkey((3, 0, 12))
+
+
+def test_ch2o_tables_identical():
+    from pytdscf_torch import potentials as tp
+    from pytdscf_tpu import potentials as jp
+
+    assert tp.ch2o_k_orig == jp.ch2o_k_orig and tp.ch2o_mu == jp.ch2o_mu
+    assert tp.TABLES == jp.TABLES
