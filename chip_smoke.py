@@ -18,8 +18,10 @@ Phases (any failure exits nonzero, before the result line):
       ‖Δψ‖ < 5e-6, a second launch bit-identical) through one block and
       clusters of 8 and 16 CTAs, each timed; the same checks and times for
       every Lanczos shape of a chain step on its own operands (the route
-      sweep); the MGS QR at (240, 30), full rank and rank deficient
-      (orthogonality, reconstruction, agreement);
+      sweep); the MGS QR at (240, 30), full rank and rank deficient, and
+      at the later paths' one-block shapes (560, 20), (200, 20) and (72,
+      12) (orthogonality, reconstruction, agreement; each timed beside its
+      plain version and ``torch.linalg.qr``);
    b. five counted steps through ``TDVPEngine.propagate``: ⟨H⟩ within 5e-6
       of 0.0182253410, norm within 1e-5 of 1, and exactly 734 Lanczos and
       366 QR kernel launches per step, the Lanczos ones by route and
@@ -38,7 +40,9 @@ Phases (any failure exits nonzero, before the result line):
       copy of its carry; one more block under ``torch.profiler``, whose
       trace must hold every kernel node of its replays as b's steps
       launch them, by kernel, route and cluster size (the launches that
-      the ``kernels`` line reports for this path);
+      the ``kernels`` line reports for this path), and gives the MGS
+      kernel's device time a step by operand shape (in the launch order
+      of the warm-up step) beside one launch of each shape timed alone;
 4. the same chain through the port's entry point, ``Simulator.propagate``
    (1 + 5 steps of 0.2 fs, thresh_sil 1e-6, complex64, ``fetch_stride=1``:
    properties read after each step), with the fused whole-site kernel on
@@ -186,7 +190,7 @@ Phases (any failure exits nonzero, before the result line):
    program's control steps through ``krylov_ctl`` against its plain
    version, each timed), MGS at the (560, 20) gauge; then without
    observables one replayed step against the same step host-driven (Krylov
-   statistics, launches, populations) and 16 timed replays;
+   statistics, launches, populations) and 8 timed replays;
 18. the DVR grid models at their tests' sizes: Hénon–Heiles in both
    parameter sets (energy within 1e-6 of the literals) and H2CO's 6-mode
    SOP model (e10 − e0 within 1e-6).
@@ -200,8 +204,10 @@ The second-to-last line of stdout is a JSON object with each kernel's
 launches, error, times and bound (the least time the card could take for
 the timed call's work: its operations at the card's peak for their type or
 its bytes at the memory rate, whichever is larger; H100 SXM data sheet
-peaks at 700 W); the MGS entry carries its two timed shapes as ``cases``,
-each with its route and its launches on the main paths; the Lanczos and
+peaks at 700 W); the MGS entry carries its timed shapes as ``cases``,
+each with its route and its launches on the main paths, the replayed
+chain's MGS device time by shape and the paths' MGS launches a step by
+shape; the Lanczos and
 site entries their launches by route, the cluster size and the bulk
 times of every route (the Lanczos entry also the K step's, its cluster
 launches by size and the route sweep).  The last line is
@@ -230,6 +236,10 @@ E_REF = 0.0182253410  # ⟨H⟩ of the chain (bench.py); energy is conserved
 E_TOL = 5.0e-06  # complex64 tolerance of bench.py
 NORM_TOL = 1.0e-05
 LANCZOS_TOL = 5.0e-06  # ‖Δψ‖, tests/test_pallas_lanczos.py
+# the one-block MGS shapes of the later paths' bulk gauges, each timed in
+# phase 3a beside the chain's (240, 30)
+MGS_PATH_SHAPES = (("model B", (560, 20)), ("pyrazine", (200, 20)),
+                   ("butadiene", (72, 12)))
 BOND = 30
 DT_FS = 0.2
 TIMED_STEPS = 5
@@ -772,15 +782,25 @@ def check_mgs(name: str, m, timed: bool = False):
 
 
 def check_qr(results):
+    """The MGS kernel against its plain version at the chain's (240, 30),
+    full rank and rank deficient, and at the one-block shapes of the
+    later paths (MGS_PATH_SHAPES), full rank, each timed beside its plain
+    version, ``torch.linalg.qr`` and its bound (the entry's ``cases``;
+    the (240, 30) full-rank case is the entry's own time)."""
     import torch
 
-    rng = np.random.default_rng(0)
-    a = rng.standard_normal((240, 30)) + 1j * rng.standard_normal((240, 30))
-    full = a / np.linalg.norm(a)
+    def seeded(shape):
+        rng = np.random.default_rng(0)
+        a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return a / np.linalg.norm(a)
+
+    full = seeded((240, 30))
     deficient = full.copy()
     deficient[:, [3, 7, 29]] = 0.0
     worst = 0.0
-    for name, m_np in (("full rank", full), ("rank deficient", deficient)):
+    for name, m_np in (("full rank", full), ("rank deficient", deficient),
+                       *((f"{tag} shape", seeded(shape))
+                         for tag, shape in MGS_PATH_SHAPES)):
         m = torch.as_tensor(m_np, dtype=torch.complex64, device="cuda")
         err, rm, times = check_mgs(name, m, timed=True)
         if name == "rank deficient":
@@ -790,7 +810,85 @@ def check_qr(results):
         worst = max(worst, err)
         if "mgs_qr" not in results:  # the full-rank factor, timed
             results["mgs_qr"] = {**times, "cases": [times]}
+        elif name != "rank deficient":
+            results["mgs_qr"]["cases"].append(times)
     return worst
+
+
+def mgs_launch_shapes(run) -> list[tuple[int, int]]:
+    """The operand shapes of the MGS kernel launches of ``run()``, in
+    launch order: ``kernels.thin_qr`` reaches the wrapper through its
+    module's name ``cuda_qr``, which a recorder stands for meanwhile (the
+    wrapper and its counts are untouched)."""
+    from pytdscf_torch.mps import cuda_qr as CQ
+    from pytdscf_torch.mps import kernels as K
+
+    shapes = []
+
+    def mgs_qr(m):
+        shapes.append(tuple(m.shape))
+        return CQ.mgs_qr(m)
+
+    K.cuda_qr = SimpleNamespace(mgs_qr=mgs_qr)
+    try:
+        run()
+    finally:
+        K.cuda_qr = CQ
+    return shapes
+
+
+def shape_counts(shapes) -> dict[str, int]:
+    """How many of ``shapes`` are each shape."""
+    out: dict[str, int] = {}
+    for shape in shapes:
+        out[str(shape)] = out.get(str(shape), 0) + 1
+    return out
+
+
+def record_step_shapes(tag: str, engine, step, times) -> list:
+    """The MGS launches of one host-driven ``step()`` of ``engine``, as
+    recorded by :func:`mgs_launch_shapes`, held to the step's gauge moves
+    (:func:`mgs_moves`, shape for shape) and counted by shape into
+    ``times["mgs_step_shapes"][tag]``."""
+    shapes = mgs_launch_shapes(step)
+    require(sorted(map(str, shapes)) == sorted(
+        str(shape) for _, _, shape in mgs_moves(engine)),
+        f"{tag}: a step's {len(shapes)} MGS launches are not its gauge "
+        "moves")
+    times["mgs_step_shapes"][tag] = shape_counts(shapes)
+    log(f"{tag}: MGS launches of one host-driven step by shape, as "
+        f"recorded {times['mgs_step_shapes'][tag]}")
+    return shapes
+
+
+def mgs_replay_by_shape(shapes, events, steps: int) -> list[dict]:
+    """The MGS kernel's device time in a trace of ``steps`` replayed steps
+    by operand shape: the trace's MGS kernels in time order (``events``,
+    (start, microseconds)) follow one step's launch order ``shapes`` step
+    after step.  Each shape's launches and device ms a step, its mean ms a
+    launch beside one launch timed alone on seeded operands (CUDA events),
+    largest share first."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_qr as CQ
+
+    require(len(events) == steps * len(shapes),
+            f"mgs by shape: {len(events)} traced launches, {steps} × "
+            f"{len(shapes)} expected")
+    acc: dict[tuple[int, int], list[float]] = {}
+    for i, (_, dur) in enumerate(sorted(events)):
+        acc.setdefault(shapes[i % len(shapes)], []).append(dur / 1e3)
+    rows = []
+    rng = np.random.default_rng(0)
+    for shape, durs in acc.items():
+        a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        m = torch.as_tensor(a / np.linalg.norm(a), dtype=torch.complex64,
+                            device="cuda")
+        rows.append({"shape": list(shape), "per_step": len(durs) // steps,
+                     "ms_per_step": sum(durs) / steps,
+                     "mean_ms": sum(durs) / len(durs),
+                     "alone_ms": cuda_ms(lambda: CQ.mgs_qr(m), 50)})
+    return sorted(rows, key=lambda x: -x["ms_per_step"])
 
 
 def profile_step(engine, dt_au) -> None:
@@ -886,7 +984,7 @@ def traced_launches(prof) -> dict:
     grid (one cluster of ``grid`` CTAs), with the marker kernels
     (``markers``).  Graph replays launch their kernel nodes on the card,
     and the trace records each like any other launch."""
-    out = {**launch_record(), "markers": 0, "by_name": {}}
+    out = {**launch_record(), "markers": 0, "by_name": {}, "mgs_events": []}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -919,6 +1017,9 @@ def traced_launches(prof) -> dict:
             if short + "(" in name:
                 ends = [min(ends[0], float(e["ts"])),
                         max(ends[1], float(e["ts"]))]
+                if kernel == "mgs_qr":
+                    out["mgs_events"].append((float(e["ts"]),
+                                              float(e["dur"])))
                 out[kernel] += 1
                 out[f"{kernel}_routes"][way] += 1
                 if kernel == "lanczos_expm" and way == "cluster":
@@ -961,7 +1062,7 @@ def scaled(rec: dict, num: int, den: int = 1) -> dict:
 
     return {k: ({kk: one(vv) for kk, vv in v.items()} if isinstance(v, dict)
                 else one(v)) for k, v in rec.items()
-            if k not in ("markers", "lost", "by_name")}
+            if k not in ("markers", "lost", "by_name", "mgs_events")}
 
 
 def launch_text(rec: dict) -> str:
@@ -1033,9 +1134,12 @@ def phase_chain(times) -> tuple[dict, float, object]:
     log(f"engine: {engine.nsite} sites, D={BOND}, built in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    engine.propagate(dt_au)
+    mgs_shapes = record_step_shapes(
+        "chain", engine, lambda: engine.propagate(dt_au), times)
     torch.cuda.synchronize()
     log(f"warm-up step: {time.perf_counter() - t0:.3f} s")
+    require(len(mgs_shapes) == 2 * (engine.nsite - 1),
+            f"chain: {len(mgs_shapes)} MGS launches a step")
 
     err_lz = check_lanczos(engine, dt_au, times)
     lanczos_sweep(engine, dt_au, times)
@@ -1103,7 +1207,8 @@ def phase_chain(times) -> tuple[dict, float, object]:
     return ({"lanczos_expm": (n_lz, err_lz), "mgs_qr": (n_qr, err_qr),
              "mgs_qr_routes": routes, "lanczos_expm_routes": lz_routes,
              "lanczos_expm_sizes": lz_sizes},
-            {"step_k": step_k, "peak": peak, "per_step": per_step_rec},
+            {"step_k": step_k, "peak": peak, "per_step": per_step_rec,
+             "mgs_shapes": mgs_shapes},
             engine)
 
 
@@ -1134,14 +1239,16 @@ def energy64(engine) -> float:
             / complex(S[0, 0])).real
 
 
-def phase_chain_graph(eager) -> tuple[dict, float]:
+def phase_chain_graph(eager, times) -> tuple[dict, float]:
     """bench.py's fused driver on a fresh engine: ``propagate_steps(dt,
     1)`` (a host step, then the capture of the step graph), then
     ``GRAPH_BLOCKS`` blocks of ``GRAPH_BLOCK`` replayed steps, counted and
     held to the host-driven phase ``eager``.  Returns the path's launches
     and the mean Krylov dimension over its first ``STRIDE_STEPS`` steps.
     The launches are the profiler's count of one more replayed block's
-    kernels, the same as the counters' replay accounting of it."""
+    kernels, the same as the counters' replay accounting of it; the same
+    trace gives the MGS kernel's device time by operand shape
+    (``times["mgs_qr"]["chain_replay_by_shape"]``)."""
     import torch
 
     from pytdscf_torch import units
@@ -1232,6 +1339,15 @@ def phase_chain_graph(eager) -> tuple[dict, float]:
     require(counted_launches() == want,
             f"graph chain: counters after {GRAPH_BLOCK} replayed steps "
             f"{launch_text(counted_launches())} != {launch_text(want)}")
+    rows = mgs_replay_by_shape(eager["mgs_shapes"], seen["mgs_events"],
+                               GRAPH_BLOCK)
+    times["mgs_qr"]["chain_replay_by_shape"] = rows
+    log(f"graph chain: MGS device time a replayed step "
+        f"{sum(x['ms_per_step'] for x in rows):.3f} ms over "
+        f"{sum(x['per_step'] for x in rows)} launches; by shape: " + "; ".join(
+            f"{tuple(x['shape'])} {x['per_step']}x {x['ms_per_step']:.3f} ms "
+            f"(mean {x['mean_ms']:.4f}, alone {x['alone_ms']:.4f})"
+            for x in rows))
     # what the step's copy of its new carry into the buffers costs inside
     # a graph (the same copy, recorded alone)
     from pytdscf_torch.mps.step_graph import copy_all
@@ -2293,17 +2409,21 @@ def host_snapshot(engine):
     return restore
 
 
-def program_snapshot(engine):
+def program_snapshot(engine, steps: bool = False):
     """:func:`host_snapshot` for an engine whose state is its step
-    program's buffers."""
+    program's buffers; with ``steps``, its step counts (``graph_steps``,
+    ``eager_steps``) go back too, for a traced window that may run again."""
     from pytdscf_torch.mps.step_graph import copy_all
 
     (prog,) = engine._programs.values()
     saved = [b.clone() for b in prog.buffers]
+    counts = engine.graph_steps, engine.eager_steps
 
     def restore():
         copy_all(prog.buffers, saved)
         prog.install(engine)
+        if steps:
+            engine.graph_steps, engine.eager_steps = counts
         engine.krylov_stats()
         reset_counts()
 
@@ -2451,7 +2571,7 @@ def phase_radical_pair(times, preset: str) -> dict:
     require(engine.capturable() and prog.graph is not None
             and prog.branches is not None,
             f"{tag}: the step was not captured with its IF nodes")
-    restore = program_snapshot(engine)
+    restore = program_snapshot(engine, steps=True)
     busy_g, seen_g = profile_run(lambda: (
         restore(), engine.propagate_steps(RP_DT, RP_HOST_STEPS)), count=True)
     stats_g, n_g = engine.krylov_stats(), rp_launches()
@@ -2820,6 +2940,8 @@ def phase_workflow(name: str, relax_steps: int, prop_steps: int) -> tuple:
                 lambda: Simulator(name, model, verbose=0).relax(
                     maxstep=relax_steps, stepsize=0.1, improved=True))
             gs_engine = wf.engine
+            log(f"{tag}: MGS gauge moves a step by shape (mgs_moves) "
+                f"{shape_counts(s for *_, s in mgs_moves(gs_engine))}")
             stats = gs_engine.ground_state_stats()
             log(f"{tag}: relax {wall / relax_steps:.4f} s/step; "
                 f"{passes_text(stats)}")
@@ -3184,7 +3306,10 @@ def phase_improved_replay(gs_engine, model) -> dict:
     host.propagate(dt)
     torch.cuda.synchronize()
     want = counted_launches()
-    _, seen = profile_run(lambda: graph.propagate_steps(dt, 1), count=True)
+    restore = program_snapshot(graph, steps=True)
+    _, seen = profile_run(lambda: (
+        restore(), graph.ground_state_stats(),
+        graph.propagate_steps(dt, 1)), count=True)
     e_h, e_g = host.expectation().real, graph.expectation().real
     s_h, s_g = host.ground_state_stats(), graph.ground_state_stats()
     log(f"improved replay: graph steps {graph.graph_steps}; ⟨H⟩ host "
@@ -3287,7 +3412,7 @@ PYRAZINE_TRACED_STEPS = 33
 MODEL_B_STEPS = 20
 MODEL_B_DT = 0.2
 MODEL_B_EVERY = 10
-MODEL_B_REPLAYS = 16
+MODEL_B_REPLAYS = 8
 MODEL_B_NFOCK = 28
 MODEL_B_BOND = 20
 # the bar: three times the port's complex64 CPU run against the gold,
@@ -3610,6 +3735,8 @@ def phase_pyrazine(times) -> dict:
                 *centred_h_step(engine, PYRAZINE_BULK, fs(PYRAZINE_DT))[:3],
                 engine.config)
             times.setdefault("a4_lanczos", []).append(case)
+            record_step_shapes(tag, engine, lambda: engine.propagate(
+                fs(PYRAZINE_DT)), times)
             engine.propagate_steps(fs(PYRAZINE_DT), 16)  # its program
             busy = profile_run(lambda: engine.propagate_steps(
                 fs(PYRAZINE_DT), 16))
@@ -3764,7 +3891,7 @@ def phase_model_b(times, build) -> dict:
                       for k in range(len(ops))]
             restore()
             t0 = time.perf_counter()
-            g.propagate(dt)
+            record_step_shapes(tag, g, lambda: g.propagate(dt), times)
             torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
             stats_h, ctl_h = g.krylov_stats(), CK.krylov_ctl.launches
@@ -3959,9 +4086,9 @@ def run_phases(build) -> int:
     phase_device()
     phase_build()
 
-    times: dict[str, dict] = {}
+    times: dict[str, dict] = {"mgs_step_shapes": {}}
     chain, eager, chain_engine = clock("chain", phase_chain(times))
-    graph, graph_k = clock("chain graph", phase_chain_graph(eager))
+    graph, graph_k = clock("chain graph", phase_chain_graph(eager, times))
     fused = clock("simulator", phase_simulator(
         times, mean_krylov(eager["step_k"]), chain_engine))
     del chain_engine
@@ -4019,11 +4146,20 @@ def run_phases(build) -> int:
     times["mgs_qr"]["cases"].append(times["a4_mgs"])
     kernels[[k["name"] for k in kernels].index("krylov_ctl")][
         "model_b"] = times["a4_krylov_ctl"]
-    # the MGS cases: each timed shape with its route's main-path launches
-    kernels[[k["name"] for k in kernels].index("mgs_qr")]["cases"] = [
-        {**case, "launches": sum(path.get("mgs_qr_routes", {}).get(
-            case["route"], 0) for path in paths)}
+    # the MGS cases: each timed shape with its launches a step at that
+    # shape in each path whose host-driven step was recorded
+    # (record_step_shapes); the replayed chain's MGS time by shape; the
+    # recorded steps' launches by shape
+    mgs = kernels[[k["name"] for k in kernels].index("mgs_qr")]
+    steps = times["mgs_step_shapes"]
+    mgs["cases"] = [
+        {**case, "launches_a_step": {
+            path: counts[str(tuple(case["shape"]))]
+            for path, counts in steps.items()
+            if str(tuple(case["shape"])) in counts}}
         for case in times["mgs_qr"]["cases"]]
+    mgs["chain_replay_by_shape"] = times["mgs_qr"]["chain_replay_by_shape"]
+    mgs["step_shapes"] = steps
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

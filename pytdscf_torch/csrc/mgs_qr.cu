@@ -18,11 +18,14 @@
 // reductions over all N rows.  Three routes, chosen by the wrapper
 // (cuda_qr.route):
 //
-//  * one block (mgs_qr_kernel, Q in shared memory): one block of 256
-//    threads keeps Q in dynamic shared memory, column-major (Q[j * N + n]),
-//    so that the dot products <Q_j|v> (one warp per column j, lanes over n)
-//    and the update v -= Q c (threads over n) read consecutive banks.  Every
-//    chain shape takes it, (240, 30) included.
+//  * one block (mgs_qr_kernel, Q in shared memory): one block of 1024
+//    threads (as site_step.cu runs the factor) stages m into Q once,
+//    before the column loop (tdvp_device.cuh's mgs_stage: lane pairs read
+//    16 contiguous bytes of a row and store them into two columns, Q typed
+//    as shared memory: see mgs_qr_kernel), and runs mgs_factor on it in
+//    place, four block barriers per live column (see the note there).
+//    Every shape of the chain, pyrazine and the donor-acceptor models
+//    takes it.
 //
 //  * one thread-block cluster (mgs_qr_cluster_kernel), for a Q that does
 //    not fit one block but fits kCluster = 8 (the portable cluster size):
@@ -45,12 +48,13 @@
 //    through one SM's L2 port at (1024, 64) (2.14 ms on an H100).
 //
 //  * one block with Q in a device-memory scratch (the first kernel with
-//    qwork given), for a Q beyond a cluster's shared memory (N * r above
-//    about 8 * 27k).  No shape of the chain or the radical pair takes it.
+//    qwork given, the same factor over device memory at stride N), for a Q
+//    beyond a cluster's shared memory (N * r above about 8 * 27k).  No
+//    shape of today's paths takes it.
 //
 // Both factorisations are tdvp_device.cuh's: the one-block mgs_factor and
-// the cluster layer's cluster_mgs_factor (site_step.cu runs each of them
-// inside its fused site update, on its one-block and cluster routes).
+// the cluster layer's cluster_mgs_factor (site_step.cu runs mgs_factor
+// inside its fused site update, on both of its routes).
 //
 // Layout: m (N, r) complex64 row-major (torch's contiguous layout, float2
 // interleaved), Q (N, r) row-major, R (r, r) row-major.  N >= r >= 1.
@@ -61,28 +65,45 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the cluster route's CTAs
 constexpr int kWarps = kThreads / 32;
 constexpr int kCluster = 8;  // CTAs of the cluster route (portable size)
+constexpr int kBlock = 1024;  // threads of the one-block route
 
-__global__ void __launch_bounds__(kThreads)
+// The one-block factor of m into Q (column stride N) and its copy out:
+// c1 (r) the first pass's coefficients, then c2 and c3 (r each).
+__device__ __forceinline__ void mgs_qr_block(const float2* __restrict__ m,
+                                             float2* __restrict__ q_out,
+                                             float2* __restrict__ r_out,
+                                             float2* Q, float2* c1, int N,
+                                             int r, float* red) {
+  mgs_stage(m, Q, N, N, r);
+  __syncthreads();
+  mgs_factor<kBlock>(Q, N, r_out, N, r, c1, c1 + r, c1 + 2 * r, red);
+  // Q out row-major, in the staging order (two columns of a row to a lane
+  // pair)
+  for (int p = 0; p < r; p += 2)
+    for (int i = threadIdx.x; i < 2 * N; i += kBlock) {
+      const int j = p + (i & 1), n = i >> 1;
+      if (j < r) q_out[(size_t)n * r + j] = Q[(size_t)j * N + n];
+    }
+}
+
+// The one-block route: qwork nullptr (Q in shared memory) or an (r, N)
+// device scratch (the device route).  One inlined copy of the factor per
+// route, so that in the shared-memory copy every access of Q compiles to
+// a shared-memory instruction: with one copy for both routes (Q a pointer
+// to either) a (240, 30) launch took 8 % longer, and staging m by one
+// 8-byte cp.async an entry beat these plain loads (scripts/chain_step.py).
+__global__ void __launch_bounds__(kBlock)
 mgs_qr_kernel(const float2* __restrict__ m, float2* __restrict__ q_out,
               float2* __restrict__ r_out, float2* qwork, int N, int r) {
   extern __shared__ float2 smem[];
-  // (r, N): column j at Q + j * N; in shared memory unless qwork is given
-  float2* Q = qwork != nullptr ? qwork : smem;
-  float2* v = qwork != nullptr ? smem : Q + (size_t)N * r;  // (N) current column
-  float2* e = v + N;           // (N) completion vector
-  float2* c1 = e + N;          // (r) first-pass coefficients
-  float2* c2 = c1 + r;         // (r) second-pass coefficients
-  float2* c3 = c2 + r;         // (r) coefficients of the completion passes
-  __shared__ float red[kWarps];
-
-  mgs_factor<kThreads>(m, Q, r_out, N, r, v, e, c1, c2, c3, red);
-  for (int i = threadIdx.x; i < N * r; i += kThreads) {
-    const int n = i / r, j = i - n * r;
-    q_out[i] = Q[(size_t)j * N + n];
-  }
+  __shared__ float red[2 * kBlock / 32];
+  if (qwork != nullptr)
+    mgs_qr_block(m, q_out, r_out, qwork, smem, N, r, red);
+  else
+    mgs_qr_block(m, q_out, r_out, smem, smem + (size_t)N * r, N, r, red);
 }
 
 // ------------------------------------------------------- the cluster route
@@ -123,18 +144,20 @@ mgs_qr_cluster_kernel(const float2* __restrict__ m, float2* __restrict__ q_out,
 }  // namespace
 
 // qwork: nullptr (Q in shared memory) or an (r, N) complex64 scratch.
+// Dynamic shared memory (cuda_qr.smem_bytes(N, r, "block" or "device")):
+// Q unless qwork is given, and three coefficient columns.
 extern "C" int pytdscf_mgs_qr_c64(int device, const void* m, void* q,
                                   void* r_out, void* qwork, int N, int r,
                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t q_smem = qwork != nullptr ? 0 : (size_t)N * r;
-  const size_t smem = sizeof(float2) * (q_smem + 2 * (size_t)N + 3 * (size_t)r);
+  const size_t smem = sizeof(float2) * (q_smem + 3 * (size_t)r);
   err = cudaFuncSetAttribute(mgs_qr_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  mgs_qr_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  mgs_qr_kernel<<<1, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(m), static_cast<float2*>(q),
       static_cast<float2*>(r_out), static_cast<float2*>(qwork), N, r);
   return (int)cudaGetLastError();

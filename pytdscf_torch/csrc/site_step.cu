@@ -95,7 +95,7 @@ site_step_kernel(const float2* __restrict__ H, const float2* __restrict__ Rt,
   __shared__ float2 As[kTile][kTile + 1];
   __shared__ float2 Bs[kTile][kTile + 1];
   __shared__ float2 red2[kWarps];
-  __shared__ float red[kWarps];
+  __shared__ float red[2 * kWarps];
   __shared__ float alpha[kMaxK];
   __shared__ float beta[kMaxK];
   __shared__ float2 coef[kMaxK];
@@ -104,9 +104,7 @@ site_step_kernel(const float2* __restrict__ H, const float2* __restrict__ Rt,
   const int n = M * r, r2 = r * r;
   float2* blk = smem;               // (nc, r, r) renormalised blocks
   float2* sig = blk + nc * r2;      // (r, r) sigma, then sigma1
-  float2* v = sig + r2;             // (M) MGS column
-  float2* e = v + M;                // (M) MGS completion
-  float2* c1 = e + M;               // (r) MGS coefficients, three sets
+  float2* c1 = sig + r2;            // (r) MGS coefficients, three sets
   float2* c2 = c1 + r;
   float2* c3 = c2 + r;
   // scratch is written and read back inside the launch: no __restrict__
@@ -132,8 +130,10 @@ site_step_kernel(const float2* __restrict__ H, const float2* __restrict__ Rt,
   lanczos_result(prevH, psi1, n, conserve, kh.beta0, red2);
   __syncthreads();
 
-  // 2. gauge psi1 = Q sigma
-  mgs_factor<kThreads>(psi1, Q, sig, M, r, v, e, c1, c2, c3, red);
+  // 2. gauge psi1 = Q sigma, Q (column stride M) staged from psi1
+  mgs_stage(psi1, Q, M, M, r);
+  __syncthreads();
+  mgs_factor<kThreads>(Q, M, sig, M, r, c1, c2, c3, red);
 
   // 3. renormalisation B_c = Q^H (H_c Q), then its norm and log-scale
   for (int c = 0; c < nc; ++c)
@@ -192,8 +192,8 @@ site_step_kernel(const float2* __restrict__ H, const float2* __restrict__ Rt,
 // then Q, gathered whole; then the partial blocks, the reduce-scatter's
 // slice sums and the blocks), the matvec's intermediate (nc Mc r), w and
 // prev (Mc r each), Q's rows (Mc rp), c1, c2, c3 (r each), two inboxes
-// (2 C r), sigma (r^2), a slice of H's rows (nc Mc, kChunk + 1), Q whole
-// column-major (M r) and the MGS's two work vectors (M each).
+// (2 C r), sigma (r^2), a slice of H's rows (nc Mc, kChunk + 1) and Q whole
+// column-major (M r).
 __global__ void __launch_bounds__(kThreads)
 site_step_cluster_kernel(
     const float2* __restrict__ H, const float2* __restrict__ Rt,
@@ -206,7 +206,7 @@ site_step_cluster_kernel(
   __shared__ float2 As[kTile][kTile + 1];
   __shared__ float2 Bs[kTile][kTile + 1];
   __shared__ float2 red2[kWarps];
-  __shared__ float red[kWarps];
+  __shared__ float red[2 * kWarps];
   __shared__ float alpha[kMaxK];
   __shared__ float beta[kMaxK];
   __shared__ float2 coef[kMaxK];
@@ -228,8 +228,6 @@ site_step_cluster_kernel(
   float2* sig = inbox + 2 * c.size * r;    // (r, r) sigma, then sigma1
   float2* stage = sig + r2;                // (nc Mc, kChunk + 1) H's rows
   float2* Qc = stage + (size_t)nc * Mc * (kChunk + 1);  // (r, M) Q whole
-  float2* vM = Qc + (size_t)M * r;         // (M) MGS column
-  float2* eM = vM + M;                     // (M) MGS completion
   // scratch is written and read back inside the launch: no __restrict__
   // const view of it may exist (the read-only cache is not coherent)
   float2* VH = scratch + (size_t)c.rank * (kmaxH + 1) * Mc * r;
@@ -258,7 +256,9 @@ site_step_cluster_kernel(
   for (int i = tid; i < c.nh * r; i += kThreads) work[row0 + i] = w[i];
   cg::this_cluster().sync();
   cluster_gather<kThreads>(c, work, M, Mc, r);
-  mgs_factor<kThreads>(work, Qc, sig, M, r, vM, eM, c1, c2, c3, red);
+  mgs_stage(work, Qc, M, M, r);
+  __syncthreads();
+  mgs_factor<kThreads>(Qc, M, sig, M, r, c1, c2, c3, red);
   cg::this_cluster().sync();  // every peer has gathered this CTA's rows
   for (int i = tid; i < M * r; i += kThreads) {
     const int n = i / r, j = i - n * r;
@@ -358,11 +358,10 @@ site_step_cluster_kernel(
   cg::this_cluster().sync();
 }
 
-// Dynamic shared memory of one launch (bytes): the blocks, sigma, the two
-// MGS work vectors and three coefficient columns (cuda_site.smem_bytes).
+// Dynamic shared memory of one launch (bytes): the blocks, sigma and
+// three MGS coefficient columns (cuda_site.smem_bytes).
 int site_step_smem(int nc, int M, int r) {
-  return (int)(sizeof(float2) * ((size_t)(nc + 1) * r * r + 2 * (size_t)M +
-                                 3 * (size_t)r));
+  return (int)(sizeof(float2) * ((size_t)(nc + 1) * r * r + 3 * (size_t)r));
 }
 
 // Dynamic shared memory of one CTA of the cluster route (bytes;
@@ -372,7 +371,7 @@ size_t site_step_cluster_smem(int nc, int M, int r, int C) {
   return sizeof(float2) *
          (std::max((size_t)M * r, 2 * nc * rr) + (nc + 2) * Mc * r +
           Mc * (r | 1) + (3 + 2 * (size_t)C) * r + rr +
-          nc * Mc * (kChunk + 1) + (size_t)M * r + 2 * (size_t)M);
+          nc * Mc * (kChunk + 1) + (size_t)M * r);
 }
 
 }  // namespace

@@ -112,102 +112,245 @@ __device__ float2 block_sum2(float a, float b, float2* red) {
 }
 
 // ------------------------------------------------------------ MGS(×2) QR
+//
+// The one-block thin QR (mgs_factor) of the standalone kernel (mgs_qr.cu)
+// and of the fused site's gauge (site_step.cu).  Neither bytes nor FLOPs
+// bound it (a (240, 30) factor is 58 KB and 0.35 MFLOP) but the serial
+// chain of r columns: per column two Gram–Schmidt passes, each k dot
+// products over N rows, a block barrier, and a k-term update of the N rows.
+// Each step of that chain is short, so what a column costs on an H100 is
+// the latency of its steps, not their FLOPs nor the barriers between them:
+// at (240, 30) with 1024 threads a phase of dot products takes ~1700
+// cycles, an update ~1350-1500, a barrier 82 (scripts/mgs_blocks.py).  The
+// design keeps the chain short and each step's loads in flight together:
+//
+//  * Q is the caller's buffer, column-major (column j at Q + j * ld, ld >=
+//    N), and holds m's columns on entry, staged once before the loop:
+//    column k is orthogonalised in place, so no column is read from device
+//    memory inside the loop and no separate work vector exists.
+//  * Latency first: each loop issues its loads several steps deep before
+//    their FMAs, and stores nothing (the column scaled late is scaled in
+//    the update), so nothing orders the next step's loads behind it.  The
+//    dot products take two consecutive earlier columns per warp (one load
+//    of x feeds both; 16 warps of 1024 threads cover k <= 32 in one round)
+//    and reduce the warp's four partial sums by one reduce-scatter
+//    butterfly (seven shuffles).  The update takes one row per thread (the
+//    coefficients broadcast): lanes read consecutive rows, so Q needs no
+//    padding against bank conflicts, and no shuffle is needed.  Four
+//    columns a warp, a column a warp, an update not unrolled and an update
+//    split over 2, 4 or 8 lanes a row (combined by shuffles, at a stride
+//    free of bank conflicts) each measured slower (scripts/mgs_blocks.py).  1024 threads, as the fused
+//    site runs the factor, measured fastest at (560, 20) (a row a thread)
+//    and within 4-10 % of 256 or 512 at the other path shapes.
+//  * Four block barriers per live column: after each pass's dot products
+//    and after each pass's update.  ||v||^2 is summed by the threads that
+//    finish the second update and reduced at the barrier that ends it; the
+//    scaling of column k by 1 / ||v|| waits for column k+1: its dot
+//    product is scaled as it is written, its rows by their threads in the
+//    first update; R's entries are written by the lanes that finish them.
+//
+// Every reduction sums partials by the same butterfly in every warp, so
+// every thread holds the same bits of ||m||, ||v|| and ||e|| and takes the
+// same dead/live decision; no atomics: a repeated launch is bit-identical.
 
-// One Gram–Schmidt pass of x (N) against Q[:, :k] (column-major, column j
-// at Q + j * N): c[j] = <Q_j|x> for j < k, then x -= sum_j Q_j c[j].
-template <int kThreads>
-__device__ void gs_pass(const float2* Q, float2* x, float2* c, int N, int k) {
-  constexpr int kWarps = kThreads / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = warp; j < k; j += kWarps) {
-    const float2* q = Q + (size_t)j * N;
-    float re = 0.f, im = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      const float2 a = q[n], b = x[n];
-      re += a.x * b.x + a.y * b.y;  // conj(a) * b
-      im += a.x * b.y - a.y * b.x;
-    }
-    re = warp_sum(re);
-    im = warp_sum(im);
-    if (lane == 0) c[j] = make_float2(re, im);
+// The (N, r) matrix m (row-major, device or shared memory) into Q
+// (column-major, stride ld), entry pairs (n, 2p), (n, 2p + 1) to
+// neighbouring lanes (16 contiguous bytes of m; the stores to Q cover every
+// bank pair twice for any ld).  The caller synchronises.
+__device__ void mgs_stage(const float2* m, float2* Q, int ld, int N, int r) {
+  const int step = blockDim.x, span = 2 * N;
+  int p = 0, i = threadIdx.x;  // entry i of column pair p
+  while (i >= span) {
+    i -= span;
+    p += 2;
   }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float sr = 0.f, si = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float2 a = Q[(size_t)j * N + n], b = c[j];
-      sr += a.x * b.x - a.y * b.y;
-      si += a.x * b.y + a.y * b.x;
+  for (; p < r;) {
+    const int j = p + (i & 1), n = i >> 1;
+    if (j < r) Q[(size_t)j * ld + n] = m[(size_t)n * r + j];
+    i += step;
+    while (i >= span) {
+      i -= span;
+      p += 2;
     }
-    const float2 xv = x[n];
-    x[n] = make_float2(xv.x - sr, xv.y - si);
   }
-  __syncthreads();
 }
 
+// The block's sum of one float per thread, the same bits in every thread:
+// warp partials into part (kThreads / 32 floats), one barrier, then every
+// warp adds them by the same butterfly.  The caller ensures that no thread
+// still reads part from an earlier call (a barrier in between).
 template <int kThreads>
-__device__ float norm2(const float2* x, int N, float* red) {
-  float s = 0.f;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    const float2 a = x[n];
-    s += a.x * a.x + a.y * a.y;
+__device__ float mgs_block_sum(float v, float* part) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31;
+  v = warp_sum(v);
+  if (lane == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return warp_sum(lane < kWarps ? part[lane] : 0.f);
+}
+
+// c[j] = <Q_j|x> for j < k: warp w takes columns 2w and 2w + 1 (then 2w +
+// 2 kWarps ...), lanes over rows, the row loop unrolled four deep (its
+// loads in flight together; nothing is stored in it).  Column `fix` is
+// still unscaled: its coefficient is scaled by `inv` as it is written
+// (mgs_update scales the column).  With `add`, R[j, k] = add[j] + c[j] is
+// written at R_k[j * r].
+template <int kThreads>
+__device__ void mgs_dots(const float2* Q, int ld, int N, int k,
+                         const float2* x, float2* c, int fix, float inv,
+                         const float2* add, float2* R_k, int r) {
+  constexpr int kWarps = kThreads / 32;
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  for (int j0 = 2 * (threadIdx.x >> 5); j0 < k; j0 += 2 * kWarps) {
+    const bool pair = j0 + 1 < k;
+    const float2* q0 = Q + (size_t)j0 * ld;
+    const float2* q1 = pair ? q0 + ld : q0;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};  // conj(Q_j0) x, conj(Q_j0+1) x
+#pragma unroll 4
+    for (int n = lane; n < N; n += 32) {
+      const float2 b = x[n], a0 = q0[n], a1 = q1[n];
+      v[0] = fmaf(a0.x, b.x, fmaf(a0.y, b.y, v[0]));
+      v[1] = fmaf(a0.x, b.y, fmaf(-a0.y, b.x, v[1]));
+      v[2] = fmaf(a1.x, b.x, fmaf(a1.y, b.y, v[2]));
+      v[3] = fmaf(a1.x, b.y, fmaf(-a1.y, b.x, v[3]));
+    }
+    // reduce-scatter: lane l ends with the warp's sum of v[(l >> 3) & 3]
+    const bool h16 = lane & 16, h8 = lane & 8;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float send = h16 ? v[i] : v[i + 2];
+      const float keep = h16 ? v[i + 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(full, send, 16);
+    }
+    {
+      const float send = h8 ? v[0] : v[1];
+      const float keep = h8 ? v[1] : v[0];
+      v[0] = keep + __shfl_xor_sync(full, send, 8);
+    }
+    v[0] += __shfl_xor_sync(full, v[0], 4);
+    v[0] += __shfl_xor_sync(full, v[0], 2);
+    v[0] += __shfl_xor_sync(full, v[0], 1);
+    const int idx = (lane >> 3) & 3, j = j0 + (idx >> 1), part = idx & 1;
+    if ((lane & 7) == 0 && (idx < 2 || pair)) {
+      if (j == fix) v[0] *= inv;
+      reinterpret_cast<float*>(c + j)[part] = v[0];
+      if (add != nullptr)
+        reinterpret_cast<float*>(R_k + (size_t)j * r)[part] =
+            reinterpret_cast<const float*>(add + j)[part] + v[0];
+    }
   }
-  return block_sum<kThreads>(s, red);
+}
+
+// x[n] -= sum_{j<k} Q_j[n] c[j] for every row n, one row per thread, the
+// terms unrolled four deep over two FMA chains; with hot >= 0, x is e_hot
+// instead of its stored value and c[j] = conj(Q_j[hot]) (e_hot's dot
+// products, exact: one term of each is nonzero).  With fix >= 0, each
+// thread first scales its row of column fix by inv (the deferred
+// normalisation of the previous column).  Returns this thread's share of
+// ||x||^2 after it.
+template <int kThreads>
+__device__ float mgs_update(float2* Q, int ld, int N, int k, float2* x,
+                            const float2* c, int hot, int fix = -1,
+                            float inv = 1.f) {
+  float ss = 0.f;
+  for (int n = threadIdx.x; n < N; n += kThreads) {
+    if (fix >= 0) {
+      float2* f = Q + (size_t)fix * ld + n;
+      *f = make_float2(f->x * inv, f->y * inv);
+    }
+    float s[4] = {0.f, 0.f, 0.f, 0.f};  // two chains, (re, im) each
+    const float2* q = Q + n;
+    const int off = hot - n;  // e_hot's coefficient of column j at q[off]
+#pragma unroll 4
+    for (int j = 0; j < k; ++j) {
+      const float2 a = q[(size_t)j * ld];
+      float2 b;
+      if (hot < 0) {
+        b = c[j];
+      } else {
+        b = q[(size_t)j * ld + off];
+        b.y = -b.y;
+      }
+      const int h = 2 * (j & 1);
+      s[h] = fmaf(a.x, b.x, fmaf(-a.y, b.y, s[h]));
+      s[h + 1] = fmaf(a.x, b.y, fmaf(a.y, b.x, s[h + 1]));
+    }
+    const float2 xv = hot < 0 ? x[n] : make_float2(n == hot ? 1.f : 0.f, 0.f);
+    const float2 y = make_float2(xv.x - (s[0] + s[2]), xv.y - (s[1] + s[3]));
+    x[n] = y;
+    ss += y.x * y.x + y.y * y.y;
+  }
+  return ss;
 }
 
 // Thin QR m = Q R of the (N, r) matrix m, N >= r >= 1, by MGS with two
-// passes per column; Q comes out column-major (column j at Q + j * N), R
-// row-major (r, r).  scale = ||m||_F + 1e-30; column k is projected twice
-// (R[:k, k] = c1 + c2); nv = ||v|| < 1e-7 scale marks a dead column, which
-// gets a zero R diagonal and the first canonical vector e_j, j = k, k+1,
-// ... (mod N), orthogonalised twice whose residual reaches
-// completion_tol(N) (e_{k mod N} wherever it does).  v and e hold N
-// entries, c1, c2, c3 r entries each.
+// passes per column, in place: Q (column-major, column j at Q + j * ld,
+// ld >= N) holds m's columns on entry and Q's on exit; R row-major (r, r).
+// scale = ||m||_F + 1e-30; column k is projected twice (R[:k, k] = c1 +
+// c2); nv = ||v|| < 1e-7 scale marks a dead column, which gets a zero R
+// diagonal and the first canonical vector e_j, j = k, k+1, ... (mod N),
+// orthogonalised twice whose residual reaches completion_tol(N) (e_{k mod
+// N} wherever it does).  A column is scaled by the reciprocal of its norm.
+// c1, c2, c3 hold r entries each, red 2 kThreads / 32 floats.  Q and R may
+// lie in shared or device memory.
 template <int kThreads>
-__device__ void mgs_factor(const float2* m, float2* Q, float2* R, int N, int r,
-                           float2* v, float2* e, float2* c1, float2* c2,
-                           float2* c3, float* red) {
+__device__ void mgs_factor(float2* Q, int ld, float2* R, int N, int r,
+                           float2* c1, float2* c2, float2* c3, float* red) {
+  constexpr int kWarps = kThreads / 32;
   const int tid = threadIdx.x;
-  for (int i = tid; i < N * r; i += kThreads) Q[i] = make_float2(0.f, 0.f);
-  for (int i = tid; i < r * r; i += kThreads) R[i] = make_float2(0.f, 0.f);
+  float* part = red;             // ||v||^2, ||e||^2 partials
+  float* part_m = red + kWarps;  // ||m||^2 partials
+  for (int a = 1; a < r; ++a)
+    for (int b = tid; b < a; b += kThreads)
+      R[(size_t)a * r + b] = make_float2(0.f, 0.f);
   float s = 0.f;
-  for (int i = tid; i < N * r; i += kThreads) {
-    const float2 a = m[i];
-    s += a.x * a.x + a.y * a.y;
-  }
-  const float scale = sqrtf(block_sum<kThreads>(s, red)) + 1e-30f;
+  for (int j = 0; j < r; ++j)
+    for (int n = tid; n < N; n += kThreads) {
+      const float2 a = Q[(size_t)j * ld + n];
+      s += a.x * a.x + a.y * a.y;
+    }
+  const float scale = sqrtf(mgs_block_sum<kThreads>(s, part_m)) + 1e-30f;
 
+  float div = 1.f;  // the previous column's norm (nv, or ne if dead)
   for (int k = 0; k < r; ++k) {
-    for (int n = tid; n < N; n += kThreads) v[n] = m[(size_t)n * r + k];
-    __syncthreads();
-    gs_pass<kThreads>(Q, v, c1, N, k);
-    gs_pass<kThreads>(Q, v, c2, N, k);
-    const float nv = sqrtf(norm2<kThreads>(v, N, red));
+    float2* x = Q + (size_t)k * ld;
+    if (k > 0) {
+      // column k - 1 is scaled by 1 / div here: its coefficient as the
+      // dot products write it, its rows in the first update
+      const float inv = 1.f / div;
+      mgs_dots<kThreads>(Q, ld, N, k, x, c1, k - 1, inv, nullptr, nullptr, r);
+      __syncthreads();
+      mgs_update<kThreads>(Q, ld, N, k, x, c1, -1, k - 1, inv);
+      __syncthreads();
+      mgs_dots<kThreads>(Q, ld, N, k, x, c2, -1, 1.f, c1, R + k, r);
+      __syncthreads();
+    }
+    const float nv = sqrtf(mgs_block_sum<kThreads>(
+        mgs_update<kThreads>(Q, ld, N, k, x, c2, -1), part));
     const bool bad = nv < kRankTol * scale;  // uniform across the block
-    float2* col = Q + (size_t)k * N;
+    div = nv;
     if (bad) {
       float ne = 0.f;
       for (int t = 0; t < N; ++t) {  // (ne is uniform across the block)
-        const int hot = (k + t) % N;
-        for (int n = tid; n < N; n += kThreads)
-          e[n] = make_float2(n == hot ? 1.f : 0.f, 0.f);
+        mgs_update<kThreads>(Q, ld, N, k, x, nullptr, (k + t) % N);
         __syncthreads();
-        gs_pass<kThreads>(Q, e, c3, N, k);
-        gs_pass<kThreads>(Q, e, c3, N, k);
-        ne = sqrtf(norm2<kThreads>(e, N, red)) + 1e-30f;
+        mgs_dots<kThreads>(Q, ld, N, k, x, c3, -1, 1.f, nullptr, nullptr, r);
+        __syncthreads();
+        ne = sqrtf(mgs_block_sum<kThreads>(
+                 mgs_update<kThreads>(Q, ld, N, k, x, c3, -1), part)) +
+             1e-30f;
         if (ne >= completion_tol(N)) break;
       }
-      for (int n = tid; n < N; n += kThreads)
-        col[n] = make_float2(e[n].x / ne, e[n].y / ne);
-    } else {
-      for (int n = tid; n < N; n += kThreads)
-        col[n] = make_float2(v[n].x / nv, v[n].y / nv);
+      div = ne;
     }
-    for (int j = tid; j < k; j += kThreads)
-      R[(size_t)j * r + k] = make_float2(c1[j].x + c2[j].x, c1[j].y + c2[j].y);
     if (tid == 0) R[(size_t)k * r + k] = make_float2(bad ? 0.f : nv, 0.f);
-    __syncthreads();
   }
+  const float inv = 1.f / div;
+  float2* last = Q + (size_t)(r - 1) * ld;
+  for (int n = tid; n < N; n += kThreads)
+    last[n] = make_float2(last[n].x * inv, last[n].y * inv);
+  __syncthreads();
 }
 
 // --------------------------------------------------------- tiled products

@@ -23,19 +23,23 @@ Semantics (identical in both versions):
 What bounds the kernel on the H100: not bytes or FLOPs (a (240, 30) factor
 is 0.35 MFLOP over 58 KB) but the serial chain of r columns, each a few
 reductions over all N rows.  :func:`route` picks one of three routes by the
-shared memory they need (see the source note in ``csrc/mgs_qr.cu``):
+shared memory they need (see the source notes in ``csrc/mgs_qr.cu`` and
+``csrc/tdvp_device.cuh``):
 
-* ``"block"``: one block of 256 threads holds Q in its shared memory,
-  column-major, and runs all r columns in one launch.  Every shape of the
-  184-site chain takes it ((240, 30) the largest).
+* ``"block"``: one block of 1024 threads stages m into its shared memory
+  once (column-major) and orthogonalises the columns there in place, in
+  one launch: the dot products two earlier columns a warp, the update one
+  row a thread, four block barriers a live column.  Every shape of the
+  184-site chain ((240, 30) the largest), of pyrazine and of the
+  donor–acceptor models ((560, 20)) takes it.
 * ``"cluster"``: one thread-block cluster of :data:`CLUSTER` CTAs, each
   holding ceil(N / 8) rows of Q in its own shared memory; the reductions run
   over the cluster's distributed shared memory, summed in rank order so
   that every CTA takes the same decisions.  The χ=1024 radical pair's
   (1024, 64) edge gauge takes it.
-* ``"device"``: one block with Q in a device-memory scratch the wrapper
-  allocates, read through L2, for a Q beyond a cluster's shared memory.
-  No shape of today's paths takes it.
+* ``"device"``: the one-block kernel with Q in a device-memory scratch the
+  wrapper allocates (stride N), read through L2, for a Q beyond a
+  cluster's shared memory.  No shape of today's paths takes it.
 """
 
 from __future__ import annotations
@@ -136,18 +140,18 @@ ROUTES = ("block", "cluster", "device")
 
 def smem_bytes(N: int, r: int, route: str = "block") -> int:
     """Dynamic shared memory of one block (one CTA) of a route, complex64:
-    ``"block"``: Q, v, e and three coefficient columns; ``"cluster"``: the
-    CTA's ceil(N / CLUSTER) rows of Q (row stride r rounded up to an odd
-    number), of v and of e, three coefficient columns, four strip partials
-    and two inboxes of CLUSTER partial columns; ``"device"``: v, e and the
-    coefficients (Q is in device memory)."""
+    ``"block"``: Q and three coefficient columns;
+    ``"cluster"``: the CTA's ceil(N / CLUSTER) rows of Q (row stride r
+    rounded up to an odd number), of v and of e, three coefficient columns,
+    four strip partials and two inboxes of CLUSTER partial columns;
+    ``"device"``: the coefficients (Q is in device memory)."""
     if route == "block":
-        return 8 * (N * r + 2 * N + 3 * r)
+        return 8 * (N * r + 3 * r)
     if route == "cluster":
         nc = -(-N // CLUSTER)
         return 8 * (nc * (r | 1) + 2 * nc + (3 + 4 + 2 * CLUSTER) * r)
     if route == "device":
-        return 8 * (2 * N + 3 * r)
+        return 8 * 3 * r
     raise ValueError(f"unknown mgs_qr route {route!r}")
 
 

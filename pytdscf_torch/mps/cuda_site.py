@@ -74,23 +74,22 @@ CLUSTER_MIN_M = 64
 def smem_bytes(nc: int, M: int, r: int, way: str = "block",
                cluster: int = CLUSTER) -> int:
     """Dynamic shared memory of one CTA on the forward-form shapes,
-    complex64.  ``"block"``: the blocks and σ ((nc + 1)·r²), two MGS work
-    vectors of M and three coefficient columns of r
-    (``site_step.cu:site_step_smem``).  ``"cluster"``, Mc = ceil(M / C):
+    complex64.  ``"block"``: the blocks and σ ((nc + 1)·r²) and three MGS
+    coefficient columns of r (``site_step.cu:site_step_smem``; the gauge's
+    Q is in the device scratch).  ``"cluster"``, Mc = ceil(M / C):
     a work area of max(M·r, 2·nc·r²) (x, ψ₁ and Q gathered whole, then the
     partial blocks and their slice sums), the matvec's intermediate
     (nc·Mc·r), w and prev (Mc·r each), Q's rows (Mc·(r | 1)), three
     coefficient columns, two inboxes of C·r, σ (r²), a slice of
-    ``CHUNK`` columns of the CTA's rows of H (rows padded by one), Q whole
-    (M·r) and the MGS's two work vectors of M
-    (``site_step.cu:site_step_cluster_smem``)."""
+    ``CHUNK`` columns of the CTA's rows of H (rows padded by one) and Q
+    whole (M·r; ``site_step.cu:site_step_cluster_smem``)."""
     if way == "block":
-        return 8 * ((nc + 1) * r * r + 2 * M + 3 * r)
+        return 8 * ((nc + 1) * r * r + 3 * r)
     if way == "cluster":
         mc = -(-M // cluster)
         return 8 * (max(M * r, 2 * nc * r * r) + (nc + 2) * mc * r
                     + mc * (r | 1) + (3 + 2 * cluster) * r + r * r
-                    + nc * mc * (CHUNK + 1) + M * r + 2 * M)
+                    + nc * mc * (CHUNK + 1) + M * r)
     raise ValueError(f"unknown site_step route {way!r}")
 
 

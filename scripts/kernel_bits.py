@@ -8,8 +8,10 @@ output: the Lanczos kernel at the 184-site chain's shapes (the H step at
 (``lanczos_*``) and through the one-block route (``lanczos_block_*``), the
 fused site kernel at the chain's bulk shape in both directions, likewise
 (``site_*``, ``site_block_*``; a package whose wrappers take no route runs
-its only one in both), the MGS QR at (240, 30)
-full rank and rank deficient and at (1024, 64), the relaxed matvecs
+its only one in both), the one-block MGS QR (``mgs_*``) at (240, 30)
+full rank and rank deficient and at the later paths' (560, 20), (200, 20)
+and (72, 12), the cluster MGS QR at (1024, 64) (``qr_cluster_*``), the
+relaxed matvecs
 ``heff_lo`` and ``keff_lo`` and the bf16x3 chain in its four mappings
 (``chain_left``, ``chain_right``, ``chain_heff``, ``chain_keff``) at the
 χ=1024 radical pair's bulk shape and a ragged one; then the earlier
@@ -25,7 +27,7 @@ GPU and nvcc, e.g. for a checkout of the parent commit unpacked under
     python3 scripts/kernel_bits.py dump parent out/parent.npz
     python3 scripts/kernel_bits.py dump . out/this.npz
     python3 scripts/kernel_bits.py compare out/parent.npz out/this.npz \
-        --expect-differ lanczos_h,lanczos_k,site_fwd,site_bwd
+        --expect-differ mgs,site,path
 
 (one script, this one, dumps both trees, so their outputs have the same
 names).
@@ -100,10 +102,13 @@ def dump(root: str, path: str) -> None:
     full = _cx(rng, 240, 30)
     deficient = full.copy()
     deficient[:, [3, 7, 29]] = 0.0
-    for name, m in (("full", full), ("deficient", deficient),
-                    ("large", _cx(rng, 1024, 64))):
+    for name, m in (("mgs_full", full), ("mgs_deficient", deficient),
+                    ("qr_cluster", _cx(rng, 1024, 64)),
+                    ("mgs_560x20", _cx(rng, 560, 20)),
+                    ("mgs_200x20", _cx(rng, 200, 20)),
+                    ("mgs_72x12", _cx(rng, 72, 12))):
         q, r = CQ.mgs_qr(t(m))
-        res[f"qr_{name}_q"], res[f"qr_{name}_r"] = q.cpu().numpy(), r.cpu().numpy()
+        res[f"{name}_q"], res[f"{name}_r"] = q.cpu().numpy(), r.cpu().numpy()
     # (b, k, x, w, d): the χ=1024 bulk and a shape ragged in every tile
     for tag, (b, k, x, w, d) in (("bulk", (1024, 1024, 1024, 8, 4)),
                                  ("ragged", (130, 70, 33, 7, 4))):

@@ -83,15 +83,22 @@ def test_plain_rank_deficient_exact_zero_columns(jx):
     assert np.linalg.norm(q @ r - m) < 1e-6
 
 
-def test_plain_rank1_plus_tail():
+def _rank1_tail(n: int, k: int) -> np.ndarray:
     """One big singular value and a 1e-7 tail, the early-trajectory
-    Schmidt spectrum: Q stays orthonormal and Q·R = m."""
+    Schmidt spectrum: every column after the first is dead (its residual
+    0.2-0.6 of the rank threshold at (60, 12))."""
     rng = np.random.default_rng(2)
-    u = rng.standard_normal((60, 1)) + 1j * rng.standard_normal((60, 1))
-    v = rng.standard_normal((1, 12)) + 1j * rng.standard_normal((1, 12))
-    tail = rng.standard_normal((60, 12)) + 1j * rng.standard_normal((60, 12))
+    u = rng.standard_normal((n, 1)) + 1j * rng.standard_normal((n, 1))
+    v = rng.standard_normal((1, k)) + 1j * rng.standard_normal((1, k))
+    tail = rng.standard_normal((n, k)) + 1j * rng.standard_normal((n, k))
     m = u @ v + 1e-7 * tail
-    m = torch.from_numpy((m / np.linalg.norm(m)).astype(np.complex64))
+    return (m / np.linalg.norm(m)).astype(np.complex64)
+
+
+def test_plain_rank1_plus_tail():
+    """The rank-1 matrix with a 1e-7 tail: Q stays orthonormal and Q·R =
+    m."""
+    m = torch.from_numpy(_rank1_tail(60, 12))
     q, r = CQ.mgs_qr_plain(m)
     eye = torch.eye(12, dtype=m.dtype)
     assert float(torch.linalg.matrix_norm(eye - q.conj().T @ q)) < 1e-4
@@ -161,9 +168,16 @@ def test_route_by_shape():
     assert CQ.route(1024, 64) == "cluster"
     assert CQ.route(256, 120) == "cluster"  # Nc = 32 rows per CTA
     assert CQ.route(4096, 64) == "device"
+    # the device route keeps only the coefficients in shared memory: it
+    # takes any N, and refuses only r beyond three columns of them
+    assert CQ.route(40000, 64) == "device"
     with pytest.raises(ValueError):
-        CQ.route(40000, 64)
+        CQ.route(20000, 10000)
     assert CQ.smem_bytes(1024, 64, "cluster") <= CQ.MAX_SMEM < CQ.smem_bytes(1024, 64)
+    # the one-block footprint: Q, factored in place, and three coefficient
+    # columns
+    assert CQ.smem_bytes(240, 30) == 8 * (240 * 30 + 3 * 30)
+    assert CQ.smem_bytes(560, 20) == 8 * (560 * 20 + 3 * 20)
 
 
 def test_wrapper_runs_plain_version_on_cpu():
@@ -177,21 +191,48 @@ def test_wrapper_runs_plain_version_on_cpu():
         CQ.mgs_qr(m.T)  # N < r
 
 
+def _card_matrix(shape, dead, case: str) -> np.ndarray:
+    """The card test's operand: seeded random columns with the ``dead``
+    ones zero; ``"span"``: column 0 is also e_k for the first dead column
+    k, so e_{k mod N} lies in the span of the earlier columns and the
+    completion scans on; ``"rank1"``: :func:`_rank1_tail`."""
+    if case == "rank1":
+        return _rank1_tail(*shape)
+    m = _cx(np.random.default_rng(7), *shape)
+    m[:, dead] = 0.0
+    if case == "span":
+        m[:, 0] = 0.0
+        m[dead[0] % shape[0], 0] = 0.2
+    return m
+
+
 # ------------------------------------------------------------ on the card
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dead", [
-    ((240, 30), []), ((240, 30), [3, 7, 29]), ((90, 30), []), ((64, 30), []),
-    ((8, 8), [5]), ((240, 8), []), ((64, 1), []),
+@pytest.mark.parametrize("shape,dead,case", [
+    ((240, 30), [], "random"), ((240, 30), [3, 7, 29], "random"),
+    ((90, 30), [], "random"), ((64, 30), [], "random"),
+    ((8, 8), [5], "random"), ((240, 8), [], "random"),
+    ((64, 1), [], "random"),
+    # the one-block shapes of pyrazine, model B and butadiene
+    ((560, 20), [], "random"), ((560, 20), [3, 11, 19], "random"),
+    ((200, 20), [], "random"), ((200, 20), [0, 10], "random"),
+    ((72, 12), [], "random"), ((72, 12), [5, 11], "random"),
+    # e_7 in the span of column 0: the completion scans on to e_8
+    ((560, 20), [7], "span"),
+    # every column after the first dead, each completed
+    ((60, 12), [], "rank1"), ((560, 20), [], "rank1"),
+    # more earlier columns than warps: a second round of dot products
+    ((256, 64), [40], "random"),
     # the χ=1024 radical pair's edge gauge: Q on a cluster of 8 CTAs
-    ((1024, 64), []), ((1024, 64), [5, 63]), ((1024, 64), [0]),
+    ((1024, 64), [], "random"), ((1024, 64), [5, 63], "random"),
+    ((1024, 64), [0], "random"),
     # completions e_40 and e_100 in the CTAs of rank 1 and 3 (32 rows each)
-    ((256, 120), [40, 100]),
+    ((256, 120), [40, 100], "random"),
     # Q in device memory
-    ((4096, 64), [9]),
+    ((4096, 64), [9], "random"),
 ])
-def test_kernel_matches_plain_on_card(cuda, shape, dead):
-    m_np = _cx(np.random.default_rng(7), *shape)
-    m_np[:, dead] = 0.0
+def test_kernel_matches_plain_on_card(cuda, shape, dead, case):
+    m_np = _card_matrix(shape, dead, case)
     m = torch.from_numpy(m_np).to(cuda)
     way = CQ.route(*shape)
     launches, by_route = CQ.mgs_qr.launches, CQ.mgs_qr.route_launches[way]
@@ -204,8 +245,12 @@ def test_kernel_matches_plain_on_card(cuda, shape, dead):
     assert torch.equal(q, q2) and torch.equal(r, r2)
     _check(q.cpu().numpy(), r.cpu().numpy(), m_np, q_ref.cpu().numpy(),
            r_ref.cpu().numpy())
+    # the same dead/live decisions as the plain version
+    assert torch.equal(r.diagonal() == 0, r_ref.diagonal() == 0)
     for k in dead:
         assert abs(complex(r[k, k])) < 1e-6
+    if case == "rank1":
+        assert int((r.diagonal() == 0).sum()) == shape[1] - 1
 
 
 @pytest.mark.cuda

@@ -200,10 +200,10 @@ def test_route_by_shape():
         assert CS.route(W_shape[0], r * d, l) == "cluster"
     assert CS.route(3, 12, 5) == "block"
     # the work area, T, w and prev, Q's rows, c1..c3 and two inboxes, σ, H's
-    # slice, Q whole and the MGS's two work vectors of M
+    # slice and Q whole (the MGS factor works in place: no work vectors)
     assert CS.smem_bytes(4, 240, 30, "cluster", 16) == 8 * (
         7200 + 6 * 15 * 30 + 15 * 31 + (3 + 32) * 30 + 900 + 4 * 15 * 33
-        + 7200 + 480)
+        + 7200)
     # on 8 CTAs the bulk fits too, with 0.9 KB to spare
     assert CS.smem_bytes(4, 240, 30, "cluster", 8) <= CS.MAX_SMEM
     # a site past the cluster's shared memory keeps the one-block route
