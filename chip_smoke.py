@@ -94,12 +94,15 @@ Phases (any failure exits nonzero, before the result line):
    b. a host-driven witness: one warm-up step, whose every Krylov control
       step's inputs are recorded and replayed through the control kernel
       and its plain version (coefficients within 2e-5, the same flags and
-      status; the kernel and the plain version timed), then 3 steps under
+      status; the kernel timed as 200 launches replayed in one CUDA graph,
+      beside a kernel that does no work, its plain version and
+      ``torch.linalg.matrix_exp``), then 3 steps under
       ``torch.profiler`` and 2 timed (cut from 1 + 10: the replays below
       carry the 1 + 10 steps);
    c. a fresh engine through ``propagate_steps``: a host step and the
       capture of the step as a CUDA graph with its Krylov iterations as IF
-      nodes, then the witness's 3 steps as replays under the profiler: the
+      nodes (whose conditions the control kernel sets), then the witness's
+      3 steps as replays under the profiler: the
       same Krylov statistics, the same launches by the device's count
       (each kernel a replay runs in an IF node adds one to its own counter
       on the device; the profiler loses and misnames kernels inside IF-node bodies, so
@@ -155,10 +158,12 @@ Phases (any failure exits nonzero, before the result line):
    harmonic ZPE, the norm within 1e-5 and ⟨H⟩ within 1e-5 over the 400
    steps, the strongest line in 600-3500 cm⁻¹ within one frequency bin of
    the gold; then the ground-state kernel against its plain version on
-   the relaxed state's own operands at each of its shapes (edge site on
-   one CTA, M = 36 on 8, the bulk on 16: energies within 1e-6 relative,
-   |⟨kernel|plain⟩| ≥ 1 − 1e-5), the bulk timed beside the plain version
-   and ``torch.linalg.eigh`` of the dense H_eff;
+   the relaxed state's own operands at each of its shapes, on the route,
+   cluster size and block size ``cuda_lanczos.gs_plan`` gives it
+   (energies within 1e-6 relative, |⟨kernel|plain⟩| ≥ 1 − 1e-5), the bulk
+   timed (ms a call and a matvec-iteration) beside the plain version and
+   ``torch.linalg.eigh`` of the dense H_eff, and H2O's (81, 9) shape
+   timed;
 13. imaginary-time relaxation of butadiene from its Hartree product, 4
    steps, with the separate kernels and with the fused site kernel: ⟨H⟩
    non-increasing step by step, the end ⟨H⟩ within 1e-6 of the same steps
@@ -169,7 +174,8 @@ Phases (any failure exits nonzero, before the result line):
 15. one improved step replayed from a CUDA graph (``propagate_steps``)
    against the same step driven from the host: ⟨H⟩ equal within 5e-6,
    the same ground-state telemetry, and the replay's traced launches of
-   ``lanczos_gs`` and ``mgs_qr`` by route equal to the host step's;
+   ``lanczos_gs`` and ``mgs_qr`` by route equal to the host step's; the
+   traced step's device time by kernel;
 16. pyrazine's 24-mode S2 dynamics at ``examples/pyrazine_s2_dynamics.py``'s
    own settings (nprim 10, D=20, 1500 steps of 0.1 fs, energy and the
    autocorrelation, the card's default stride 16: graph replays): the norm
@@ -293,6 +299,8 @@ ANCHOR_KEY = "chi2048_nuc6_split1_lt2_dt1_steps5_complex64"
 # flags and status equal unless the error lies within 1e-3 of the
 # threshold (a decision at round-off)
 CTL_TOL = 2.0e-05
+# the control kernel's device time: launches captured into one graph
+GRAPH_LAUNCHES = 200
 CTL_EDGE = 1.0e-03
 # relaxed matvec kernel vs its plain version, relative to the output norm:
 # the same bf16 rounding points, float32 sums in another order.  On the
@@ -358,6 +366,12 @@ REAL_SCALE_THRESH = 1.0e-06
 # test sits at rounding, so the pass counts may differ)
 GS_E_RTOL = 1.0e-06
 GS_OVERLAP_TOL = 1.0e-05
+# the H2O shape whose ground state is timed beside the butadiene bulk
+H2O_TIMED = (81, 9, 3)
+# (M, r, channels) of a random site that takes the ground-state kernel's
+# wide layout (its whole vectors in device scratch), which no relax site
+# reaches
+GS_WIDE = (300, 30, 4)
 # the launches of the port's kernels in a profiler trace: the kernel's
 # name, the wrapper and route that launch it (the MGS "device" route also
 # launches mgs_qr_kernel; the paths that count by trace never take it, as
@@ -433,6 +447,31 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
+    """Device milliseconds of one ``fn()`` with no host in the loop:
+    ``launches`` calls captured into one CUDA graph, replayed ``replays``
+    times after one warm-up replay, the events' time over the calls
+    replayed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * launches)
 
 
 def bound(flops: float, peak: float, nbytes: float) -> dict:
@@ -957,6 +996,8 @@ def profile_run(run, count: bool = False):
             f"{e.self_device_time_total / 1e3:.2f} ms")
     if count:
         log(f"profile: the port's kernels as traced: {launch_text(seen)}")
+        seen["device_ms"] = {e.key: e.self_device_time_total / 1e3
+                             for e in on_device}
         return busy_ms / wall_ms, seen
     return busy_ms / wall_ms
 
@@ -1002,7 +1043,7 @@ def traced_launches(prof) -> dict:
         if any(k in name for k in PORT_KERNELS):
             ends = [min(ends[0], float(e["ts"])), max(ends[1], float(e["ts"]))]
             out["by_name"][name] = out["by_name"].get(name, 0) + 1
-        if "lanczos_gs_kernel(" in name:
+        if "lanczos_gs_kernel" in name:
             # one kernel for both routes: the one-block route is a
             # cluster of one CTA
             ends = [min(ends[0], float(e["ts"])), max(ends[1], float(e["ts"]))]
@@ -1062,7 +1103,8 @@ def scaled(rec: dict, num: int, den: int = 1) -> dict:
 
     return {k: ({kk: one(vv) for kk, vv in v.items()} if isinstance(v, dict)
                 else one(v)) for k, v in rec.items()
-            if k not in ("markers", "lost", "by_name", "mgs_events")}
+            if k not in ("markers", "lost", "by_name", "mgs_events",
+                         "device_ms")}
 
 
 def launch_text(rec: dict) -> str:
@@ -2255,7 +2297,7 @@ def record_ctl(run) -> list:
 
     def recorded(T, G, c, flags, status, **kw):
         recs.append((T.clone(), None if G is None else G.clone(), c.clone(),
-                     dict(kw)))
+                     {k: v for k, v in kw.items() if k != "handles"}))
         return CK.krylov_ctl(T, G, c, flags, status, **kw)
 
     # the program reaches the control step through its module reference:
@@ -2338,15 +2380,32 @@ def check_krylov_ctl(recs, results, tag: str,
     dev = T.device
     flags = torch.zeros(kmax + 1, dtype=torch.bool, device=dev)
     status = torch.zeros(3, dtype=torch.int32, device=dev)
+    c = c0.clone()
 
     def call(fn):
-        return lambda: fn(T, G, c0.clone(), flags, status, **kw)
+        return lambda: fn(T, G, c, flags, status, **kw)
 
-    ms = cuda_ms(call(CK.krylov_ctl), 200)
-    plain_ms = cuda_ms(call(CK.krylov_ctl_plain), 10)
+    # the kernel's device time as the step graph runs it: its launches
+    # in one graph, counted on a device int of their own (not the step
+    # program's, which its settle reads)
+    saved = CK.krylov_ctl.replayed.get(dev.index)
+    CK.krylov_ctl.replayed[dev.index] = torch.zeros(1, dtype=torch.int32,
+                                                    device=dev)
+    try:
+        ms = graph_ms(call(CK.krylov_ctl))
+    finally:
+        if saved is None:
+            del CK.krylov_ctl.replayed[dev.index]
+        else:
+            CK.krylov_ctl.replayed[dev.index] = saved
+    floor_ms = graph_ms(lambda: torch.cuda._sleep(0))
+    plain_ms = cuda_ms(lambda: CK.krylov_ctl_plain(
+        T, G, c0.clone(), flags, status, **kw), 10)
     # the work: 12 + s dense m×m complex products, 8 flops a multiply-add
-    A = (complex(kw["scale"]) * T[:m, :m].cpu().to(torch.complex128))
-    norm1 = float(torch.max(torch.sum(torch.abs(A), dim=0)))
+    A = complex(kw["scale"]) * T[:m, :m]
+    lib_ms = cuda_ms(lambda: torch.linalg.matrix_exp(A)[:, 0], 20)
+    norm1 = float(torch.max(torch.sum(torch.abs(
+        A.cpu().to(torch.complex128)), dim=0)))
     sq = int(min(max(math.ceil(math.log2(max(norm1, 1e-30))) + 3, 0), 64))
     flops = 8.0 * (12 + sq) * m ** 3
     io = nbytes(T, c0) + c0.numel() * c0.element_size() + kmax + 1 + 12 + (
@@ -2355,12 +2414,15 @@ def check_krylov_ctl(recs, results, tag: str,
         f"|Δc| {worst:.2e} (tol {CTL_TOL}), flags and status equal "
         f"({edges} at the threshold's edge)"
         + (f", {own} the decision of the kernel's own error" if gap_edge
-           else "") + f"; at k_used={m} ({sq} squarings)"
-        f" {ms:.4f} ms, plain {plain_ms:.4f} ms")
+           else "") + f"; at k_used={m} ({sq} squarings) {ms:.5f} ms a "
+        f"launch replayed in a graph (an empty kernel {floor_ms:.5f}), "
+        f"plain {plain_ms:.4f} ms, torch.linalg.matrix_exp {lib_ms:.4f} ms")
     if "krylov_ctl" not in results:
         results["krylov_ctl"] = {"ms": ms, "plain_ms": plain_ms,
                                  **bound(flops, PEAK_FP32, io),
-                                 "library_ms": None, "k_used": m}
+                                 "library_ms": lib_ms, "floor_ms": floor_ms,
+                                 "k_used": m,
+                                 "path": "warp" if m <= CK.WARP_M else "block"}
     return worst
 
 
@@ -3219,13 +3281,14 @@ def check_ground_state(engines, times) -> float:
 
     from pytdscf_torch.mps import cuda_lanczos as CL
 
-    worst, seen = 0.0, set()
+    worst, seen, h2o = 0.0, set(), None
     for name, engine in engines.items():
         for p in range(engine.nsite):
             (L, lL), W, (R, lR), psi, _ = centred_operands(engine, p)
             l, d, r = psi.shape
             M, nc = l * d, W.shape[-1]
             bulk = name == "c4h6" and p == C4H6_BULK
+            h2o_timed = name == "h2o" and (M, r, nc) == H2O_TIMED
             if (M, r, nc) in seen and not bulk:
                 continue
             seen.add((M, r, nc))
@@ -3254,10 +3317,19 @@ def check_ground_state(engines, times) -> float:
                     f"ground state {name} site {p}: E {ek} vs {ep}, "
                     f"overlap {ov}, norm {nrm}")
             worst = max(worst, abs(ek - ep) / abs(ep))
-            if not bulk:
-                continue
             passes, iters, _ = st.tolist()
             matvecs = iters + passes
+            if h2o_timed:
+                ms = cuda_ms(lambda: CL.ground_state(ch, v), 20)
+                h2o = {"ms": ms, "ms_per_iteration": ms / matvecs,
+                       "passes": passes, "iterations": iters,
+                       "shape": [M, r, nc], "route": way,
+                       "cluster_ctas": size, "threads": CL.gs_plan(M, r, nc)[2]}
+                log(f"ground state h2o ({M}, {r}): kernel {ms:.4f} ms "
+                    f"({passes} passes, {iters} iterations, "
+                    f"{1e3 * ms / matvecs:.2f} µs a matvec-iteration)")
+            if not bulk:
+                continue
             flops = matvecs * 8.0 * nc * (M * M * r + M * r * r)
             ms = cuda_ms(lambda: CL.ground_state(ch, v), 5)
             plain_ms = cuda_ms(lambda: CL.ground_state_plain(*ch, v), 1)
@@ -3265,27 +3337,70 @@ def check_ground_state(engines, times) -> float:
             lib_ms = cuda_ms(lambda: torch.linalg.eigh(D), 3)
             lam, vec = torch.linalg.eigh(D)
             log(f"ground state bulk: kernel {ms:.4f} ms ({passes} passes, "
-                f"{iters} iterations), plain {plain_ms:.4f} ms, "
+                f"{iters} iterations, {1e3 * ms / matvecs:.2f} µs a "
+                f"matvec-iteration), plain {plain_ms:.4f} ms, "
                 f"torch.linalg.eigh of the dense ({M * r})² H_eff "
                 f"{lib_ms:.4f} ms (lowest {lam[0].item()!r} vs the kernel's "
                 f"{ek!r}); {flops / 1e6:.1f} MFLOP")
             times["lanczos_gs"] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 **bound(flops, PEAK_FP32, nbytes(*ch, v, got)),
+                "ms_per_iteration": ms / matvecs,
                 "passes": passes, "iterations": iters,
-                "shape": [M, r, nc], "route": way, "cluster_ctas": size}
+                "shape": [M, r, nc], "route": way, "cluster_ctas": size,
+                "threads": CL.gs_plan(M, r, nc)[2]}
+    times["lanczos_gs"]["h2o"] = h2o
     log(f"ground state: {len(seen)} shapes checked, {sorted(seen)}")
-    return worst
+    # the wide layout on a random Hermitian site, the same gates
+    import numpy as np
+
+    M, r, nc = GS_WIDE
+    rng = np.random.default_rng(13)
+    H = rng.normal(size=(nc, M, M)) + 1j * rng.normal(size=(nc, M, M))
+    Rt = rng.normal(size=(nc, r, r)) + 1j * rng.normal(size=(nc, r, r))
+    ch = tuple(torch.tensor((x + x.conj().transpose(0, 2, 1))
+                            / (2 * x.shape[1]), dtype=torch.complex64,
+                            device="cuda") for x in (H, Rt))
+    v = torch.tensor(rng.normal(size=(M, r)) + 1j * rng.normal(size=(M, r)),
+                     dtype=torch.complex64, device="cuda")
+    plan = CL.gs_plan(M, r, nc)
+    require(plan[3], f"ground state ({M}, {r}), {nc} channels: plan {plan} "
+            "is not the wide layout")
+    got, st = CL.ground_state(ch, v)
+    again, _ = CL.ground_state(ch, v)
+    want, st_p = CL.ground_state_plain(*ch, v)
+    ek, ep = (torch.vdot(x.reshape(-1), CL._matvec(*ch, x).reshape(-1))
+              .real.item() for x in (got, want))
+    ov = abs(torch.vdot(got.reshape(-1), want.reshape(-1)).item())
+    nrm = float(torch.linalg.vector_norm(got))
+    log(f"ground state wide ({M}, {r}), {nc} channels, {plan[0]} of "
+        f"{plan[1]}, layout {plan[3:6]}: E {ek!r} vs plain {ep!r} (rel "
+        f"{abs(ek - ep) / abs(ep):.3e}), |⟨k|p⟩| {ov:.9f}, norm {nrm:.7f}; "
+        f"status {st.tolist()} vs plain {st_p.tolist()}")
+    require(abs(ek - ep) <= GS_E_RTOL * abs(ep) and ov >= 1 - GS_OVERLAP_TOL
+            and abs(nrm - 1) < NORM_TOL and torch.equal(got, again),
+            f"ground state wide: E {ek} vs {ep}, overlap {ov}, norm {nrm}")
+    passes, iters, _ = st.tolist()
+    ms = cuda_ms(lambda: CL.ground_state(ch, v), 3)
+    times["lanczos_gs"]["wide"] = {
+        "ms": ms, "ms_per_iteration": ms / (iters + passes),
+        "passes": passes, "iterations": iters, "shape": [M, r, nc],
+        "route": plan[0], "cluster_ctas": plan[1], "threads": plan[2]}
+    log(f"ground state wide ({M}, {r}): kernel {ms:.4f} ms ({passes} "
+        f"passes, {iters} iterations, {1e3 * ms / (iters + passes):.2f} µs "
+        "a matvec-iteration)")
+    return max(worst, abs(ek - ep) / abs(ep))
 
 
-def phase_improved_replay(gs_engine, model) -> dict:
+def phase_improved_replay(gs_engine, model, times) -> dict:
     """One improved-relaxation step replayed from a CUDA graph against the
     same step driven from the host (``TDVPEngine.propagate_steps``: a host
     step and the capture, then the replay; the host engine: two
     ``propagate`` steps from the same state): ⟨H⟩ equal to complex64
     tolerance, the ground states' pass telemetry equal, and the replayed
     step's traced launches (by kernel and route) equal to the host step's
-    counted ones."""
+    counted ones.  The traced step's device time by kernel goes into
+    ``times["relax_step_device_ms"]``."""
     import torch
 
     from pytdscf_torch.config import Config
@@ -3312,6 +3427,17 @@ def phase_improved_replay(gs_engine, model) -> dict:
         graph.propagate_steps(dt, 1)), count=True)
     e_h, e_g = host.expectation().real, graph.expectation().real
     s_h, s_g = host.ground_state_stats(), graph.ground_state_stats()
+    by_kernel = {}
+    for key, ms in seen["device_ms"].items():
+        short = ("lanczos_gs" if "lanczos_gs_kernel" in key else
+                 "mgs_qr" if "mgs_qr" in key else "other")
+        by_kernel[short] = by_kernel.get(short, 0.0) + ms
+    total = sum(by_kernel.values())
+    times["relax_step_device_ms"] = {"total": total, **by_kernel}
+    log(f"improved replay: the traced step's device time {total:.3f} ms: "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f} %)"
+                    for k, v in sorted(by_kernel.items(),
+                                       key=lambda kv: -kv[1])))
     log(f"improved replay: graph steps {graph.graph_steps}; ⟨H⟩ host "
         f"{e_h!r}, replay {e_g!r} (|Δ| {abs(e_h - e_g):.3e}); passes host "
         f"{s_h['passes']}, replay {s_g['passes']}; launches host "
@@ -3349,7 +3475,7 @@ def phase_relax_operate(times) -> list:
     paths.append(workflow_path(imag))
     err_lz, err_site = check_real_scale(imag_engine, dt)
     paths += [{"lanczos_expm": (0, err_lz)}, {"site_step": (0, err_site)}]
-    paths.append(phase_improved_replay(gs_engine, model))
+    paths.append(phase_improved_replay(gs_engine, model, times))
     return paths
 
 
@@ -4125,7 +4251,10 @@ def run_phases(build) -> int:
         way: sum(path.get("lanczos_gs_routes", {}).get(way, 0)
                  for path in paths) for way in ("block", "cluster")}
     gs["bulk"] = {key: times["lanczos_gs"][key] for key in (
-        "passes", "iterations", "shape", "route", "cluster_ctas")}
+        "passes", "iterations", "shape", "route", "cluster_ctas", "threads",
+        "ms_per_iteration")}
+    gs["h2o"] = times["lanczos_gs"]["h2o"]
+    gs["relax_step_device_ms"] = times["relax_step_device_ms"]
     for name in ("lanczos_expm", "site_step"):
         entry = kernels[[k["name"] for k in kernels].index(name)]
         entry["launches_by_route"] = {
@@ -4144,8 +4273,10 @@ def run_phases(build) -> int:
     kernels[0]["model_cases"] = times["a4_lanczos"]
     kernels[0]["model_b_route_ms"] = times["a4_model_b_routes"]
     times["mgs_qr"]["cases"].append(times["a4_mgs"])
-    kernels[[k["name"] for k in kernels].index("krylov_ctl")][
-        "model_b"] = times["a4_krylov_ctl"]
+    ctl = kernels[[k["name"] for k in kernels].index("krylov_ctl")]
+    ctl["model_b"] = times["a4_krylov_ctl"]
+    for key in ("floor_ms", "k_used", "path"):
+        ctl[key] = times["krylov_ctl"][key]
     # the MGS cases: each timed shape with its launches a step at that
     # shape in each path whose host-driven step was recorded
     # (record_step_shapes); the replayed chain's MGS time by shape; the

@@ -36,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_U = ctypes.c_uint64
 #: C signatures: (argtypes) of each entry point; all return an int error code
 SIGNATURES = {
     # device, m, q, r_out, qwork (or NULL), N, r, stream
@@ -69,10 +70,10 @@ SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
-    # device, H, Rt, v, out, status, scratch, nc, M, r, kmax, the cluster
-    # size C (1: the one-block route), resident, stream
+    # device, H, Rt, v, out, status, scratch (or NULL), nc, M, r, kmax, the
+    # cluster size C (1: one CTA), threads, wide, resident, v_shared, stream
     "pytdscf_lanczos_gs_c64": [
-        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     # device, H, Rt, psi, next, logs, site_out, psi_next, blocks, log_new,
     # status, scratch, nc, M, r, P2, kmaxH, kmaxK, scale_re, scale_im,
@@ -87,12 +88,17 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P,
     ],
     # device, T, G (or NULL), c, flags, status, count (or NULL), k, kmax,
-    # scale_re, scale_im, thresh, exact, relax_after, stream
+    # scale_re, scale_im, thresh, exact, relax_after, the IF-node handles
+    # of the next iteration and of the gather, which of them to set,
+    # stream
     "pytdscf_krylov_ctl_c64": [
-        _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _D, _I, _I, _P,
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _D, _I, _I, _U, _U, _I,
+        _P,
     ],
-    # device, parent stream, pred, child stream, relaxed
-    "pytdscf_if_begin": [_I, _P, _P, _P, _I],
+    # device, parent stream, n, out (n handles)
+    "pytdscf_cond_handles": [_I, _P, _I, _P],
+    # device, parent stream, handle, child stream, relaxed
+    "pytdscf_if_begin": [_I, _P, _U, _P, _I],
     # device, child stream
     "pytdscf_if_end": [_I, _P],
 }

@@ -14,18 +14,20 @@ forms ψ, and the status ``[k_used, bad, relaxed matvecs]``.  The kernel is
 ``csrc/krylov_ctl.cu``; its plain version :func:`krylov_ctl_plain` serves
 every CPU tensor.
 
-Two ways to honour the flag.  From the host (a step launched op by op, and
-every CPU run) the program reads it once per iteration and stops.  Inside a
-captured step (``step_graph.StepProgram``) every iteration after the first
-and every gather is the body of a CUDA-graph IF node
-(:class:`GraphBranches`), which the replay runs only where the flag is set:
-the step holds no host read, and an iteration that does not run launches no
-matvec.
+Two ways to honour the decision.  From the host (a step launched op by op,
+and every CPU run) the program reads the flag once per iteration and stops.
+Inside a captured step (``step_graph.StepProgram``) every iteration after
+the first and every gather is the body of a CUDA-graph IF node
+(:class:`GraphBranches`) whose condition the control kernel sets itself,
+so the replay runs only the iterations the decisions call for: the step
+holds no host read and no launch but the control step's own, and an
+iteration that does not run launches no matvec.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
 
 import torch
@@ -36,6 +38,9 @@ from pytdscf_torch import _cuda
 EPS = 1.0e-14
 #: Largest Krylov dimension the control kernel takes.
 MAX_KRYLOV = 64
+#: Largest k_used that one warp runs (``krylov_ctl.cu:kWarpM``); above it,
+#: one block of 256 threads.
+WARP_M = 8
 
 #: the capture of a step program in progress (:func:`capturing`), or None
 _ACTIVE: "GraphBranches | None" = None
@@ -120,11 +125,17 @@ def krylov_ctl_plain(T, G, c, flags, status, *, k: int, scale: complex,
 
 
 def krylov_ctl(T, G, c, flags, status, *, k: int, scale: complex,
-               thresh: float, exact: bool, relax_after: int | None) -> None:
+               thresh: float, exact: bool, relax_after: int | None,
+               handles: tuple | None = None) -> None:
     """:func:`krylov_ctl_plain`'s step: on a CUDA tensor one launch of the
-    ``csrc/krylov_ctl.cu`` kernel (complex64, contiguous, k_max at most
-    :data:`MAX_KRYLOV`, or this raises), on a CPU tensor the plain
-    version.  ``krylov_ctl.launches`` counts kernel launches,
+    ``csrc/krylov_ctl.cu`` kernel (one warp for k + 1 <= 8, else one block;
+    complex64, contiguous, k_max at most :data:`MAX_KRYLOV`, or this
+    raises), on a CPU tensor the plain version.  Inside a captured step,
+    ``handles = (loops, gathers)`` are the IF-node handles of the Krylov
+    program (:meth:`GraphBranches.handles`): the kernel also sets
+    ``loops[k + 1]`` (the next iteration's node, where there is one) to
+    whether the next iteration runs and ``gathers[k]`` to whether the
+    program stopped here.  ``krylov_ctl.launches`` counts kernel launches,
     ``krylov_ctl.plain_calls`` the CPU calls, ``krylov_ctl.replayed`` the
     launches of replayed graphs, on the device (``_cuda.replay_count``)."""
     if T.device.type == "cpu":
@@ -146,6 +157,12 @@ def krylov_ctl(T, G, c, flags, status, *, k: int, scale: complex,
         if t.device != T.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"krylov_ctl: {name} must be a contiguous "
                              f"{dtype} tensor on {T.device}")
+    nxt, gather, conds = 0, 0, 0
+    if handles is not None:
+        loops, gathers = handles
+        if k + 1 < kmax:
+            nxt, conds = loops[k + 1], 1
+        gather, conds = gathers[k], conds | 2
     dev = T.device
     scale = complex(scale)
     code = _cuda.load().pytdscf_krylov_ctl_c64(
@@ -153,7 +170,7 @@ def krylov_ctl(T, G, c, flags, status, *, k: int, scale: complex,
         c.data_ptr(), flags.data_ptr(), status.data_ptr(),
         _cuda.replay_count(krylov_ctl, dev), k, kmax,
         scale.real, scale.imag, float(thresh), int(exact),
-        -1 if relax_after is None else relax_after,
+        -1 if relax_after is None else relax_after, nxt, gather, conds,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(code, "krylov_ctl")
@@ -168,11 +185,14 @@ krylov_ctl.replayed = {}
 class GraphBranches:
     """The IF nodes of one step capture.
 
-    :meth:`branch` makes the work queued inside it the body of an IF node
-    of the graph the current stream is capturing, guarded by a one-element
-    device bool.  The bodies are captured on a stream of their own, and
-    what they allocate comes from a memory pool of their own (:attr:`pool`,
-    kept alive with the graph): the step graph's pool takes only its own
+    :meth:`handles` makes conditional handles in the graph the current
+    stream is capturing; :meth:`branch` makes the work queued inside it
+    the body of an IF node of that graph on one of them, which runs where
+    the handle holds 1 when a replay reaches the node.  The Krylov control
+    kernel sets the handles (:func:`krylov_ctl`); every replay starts them
+    at 0.  The bodies are captured on a stream of their own, and what they
+    allocate comes from a memory pool of their own (:attr:`pool`, kept
+    alive with the graph): the step graph's pool takes only its own
     stream's allocations, and memory a body used must never return to the
     general pool while the graph can replay.
 
@@ -194,10 +214,18 @@ class GraphBranches:
         self.stream = self.pool = None
         self.delta: list = []
 
+    def handles(self, n: int) -> list[int]:
+        """``n`` new conditional handles of the graph being captured on
+        the current stream, each 0 at the start of every replay."""
+        out = (ctypes.c_uint64 * n)()
+        _cuda.check(_cuda.load().pytdscf_cond_handles(
+            self.device.index, torch.cuda.current_stream(self.device).cuda_stream,
+            n, out), "cond_handles")
+        return list(out)
+
     @contextlib.contextmanager
-    def branch(self, pred: torch.Tensor):
-        """Capture the block's work as an IF node's body guarded by
-        ``pred``."""
+    def branch(self, handle: int):
+        """Capture the block's work as an IF node's body on ``handle``."""
         lib = _cuda.load()
         dev = self.device.index
         if self.pool is None:
@@ -205,8 +233,7 @@ class GraphBranches:
             self.pool = torch.cuda.MemPool()
         parent = torch.cuda.current_stream(self.device)
         before = self.snap()
-        _cuda.check(lib.pytdscf_if_begin(dev, parent.cuda_stream,
-                                         pred.data_ptr(),
+        _cuda.check(lib.pytdscf_if_begin(dev, parent.cuda_stream, handle,
                                          self.stream.cuda_stream,
                                          int(self.relaxed)), "if_begin")
         try:

@@ -51,15 +51,16 @@ Improved relaxation's restarted Lanczos ground state (the JAX package's
 ``_ground_state_multi`` over ``lanczos_ground_state``: XLA's
 ``while_loop`` and ``eigh``, no ``pl.pallas_call``) is a second kernel over
 the same channels, ``csrc/lanczos_gs.cu``: :func:`ground_state` runs every
-pass of a site in one launch, on a cluster of :func:`cluster_size` CTAs or,
-where that finds none, on one CTA (a cluster of one), and
-:func:`ground_state_plain` is its plain version
+pass of a site in one launch, on the route of its own rule
+(:func:`gs_rule`: 16 CTAs of 512 threads, or one CTA of 128 for a small
+site), and :func:`ground_state_plain` is its plain version
 (``integrator.ground_state_multi`` over the channel matvec).
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 
 import numpy as np
@@ -361,37 +362,149 @@ lanczos_expm.plain_calls = 0
 # ------------------------------------------------ improved relaxation
 
 
+#: Block sizes the ground-state kernel is built for (``lanczos_gs.cu``:
+#: ``gs_dispatch``; 1024 threads spill registers, and 32 and 256 measured
+#: no faster than 128 on one CTA and slower than 512 on a cluster, PERF.md
+#: §6), and the cluster sizes it takes (C = 1: one CTA).
+GS_THREADS = (128, 512)
+GS_CLUSTERS = (1, 2, 4, 8, 16)
+#: Dynamic shared memory a ground-state CTA may ask for: :data:`MAX_SMEM`
+#: less its static buffers (partials, T's diagonals, the eigenvector).
+GS_MAX_SMEM = MAX_SMEM - 1024
+#: The ground state's own route rule (:func:`gs_rule`), set from
+#: ``scripts/relax_step.py --sweep`` over the relax stages' 11 shapes (H100
+#: 80GB HBM3, 700 W; PERF.md §6): a site whose matvec has at least
+#: GS_CLUSTER_WORK complex multiply-adds runs on the largest cluster, 512
+#: threads a CTA (1024 spill registers); a smaller one on one CTA of 128.
+GS_CLUSTER_WORK = 50_000
+GS_CLUSTER_THREADS = 512
+GS_BLOCK_THREADS = 128
+
+
+def gs_smem_bytes(nc: int, M: int, r: int, cluster: int, kmax: int,
+                  wide: bool, resident: bool, v_shared: bool) -> int:
+    """Dynamic shared memory of one ground-state CTA
+    (``lanczos_gs.cu:gs_smem``): three whole Krylov vectors (3·M·r
+    complex64) and Rt (nc·r²), or where ``wide`` only a copy of one vector
+    (M·r: the three live in device scratch, Rt is read from device
+    memory); the matvec's intermediate (nc·Mc·r), the CTA's rows of the
+    ``kmax`` Krylov vectors where ``v_shared``, the CTA's nc·Mc rows of H
+    (all M columns when ``resident``, else a slice of :data:`CHUNK`; rows
+    padded by one), Mc = ceil(M / C)."""
+    mc = -(-M // cluster)
+    cols = (M if resident else CHUNK) + 1
+    vectors = M * r if wide else 3 * M * r + nc * r * r
+    return 8 * (vectors + nc * mc * r + (kmax * mc * r if v_shared else 0)
+                + nc * mc * cols)
+
+
+def gs_layout(M: int, r: int, nc: int, cluster: int
+              ) -> tuple[bool, bool, bool] | None:
+    """``(wide, resident, v_shared)`` of a ground-state CTA: the most that
+    fits in its shared memory.  H's rows first (read whole by every
+    matvec; streamed, each matvec waits on device memory once a slice),
+    then the three whole vectors and Rt (the wide layout keeps them in
+    device memory), then its rows of the Krylov vectors (written once an
+    iteration, read once a pass); None where not even a slice of H's rows
+    fits beside one vector."""
+    kmax = min(integrator.GS_BLOCK_DIM, M * r)
+    for resident, wide, v_shared in itertools.product(
+            (True, False), (False, True), (True, False)):
+        if gs_smem_bytes(nc, M, r, cluster, kmax, wide, resident,
+                         v_shared) <= GS_MAX_SMEM:
+            return wide, resident, v_shared
+    return None
+
+
+def gs_candidates(M: int, r: int, nc: int) -> list[tuple[int, int]]:
+    """Every ``(cluster, threads)`` the ground-state kernel takes for an
+    (M, r) site over ``nc`` channels: one CTA of any of
+    :data:`GS_THREADS`, or a cluster of :data:`GS_CLUSTER_THREADS` a CTA,
+    as long as the cluster has no more CTAs than rows and a layout
+    fits."""
+    out = []
+    for size in GS_CLUSTERS:
+        if size > M or gs_layout(M, r, nc, size) is None:
+            continue
+        for threads in GS_THREADS if size == 1 else (GS_CLUSTER_THREADS,):
+            out.append((size, threads))
+    return out
+
+
+def gs_rule(M: int, r: int, nc: int) -> tuple[int, int] | None:
+    """The ground state's ``(cluster, threads)`` for an (M, r) site over
+    ``nc`` channels: a matvec of nc·M·r·(M + r) complex multiply-adds
+    below :data:`GS_CLUSTER_WORK` runs on one CTA of
+    :data:`GS_BLOCK_THREADS`; a larger one on the largest cluster of
+    :data:`GS_CLUSTERS` with no more CTAs than rows, of
+    :data:`GS_CLUSTER_THREADS` a CTA.  Where no layout of that route fits
+    (``gs_layout``: one CTA's share of H's rows too large), the next
+    larger cluster that fits; None where none does."""
+    size, threads = 1, GS_BLOCK_THREADS
+    if nc * M * r * (M + r) >= GS_CLUSTER_WORK:
+        size = max(c for c in GS_CLUSTERS if c <= M)
+        threads = GS_CLUSTER_THREADS
+    for c in GS_CLUSTERS:
+        if c >= size and c <= M and gs_layout(M, r, nc, c):
+            return c, threads if c == size else GS_CLUSTER_THREADS
+    return None
+
+
 def gs_fits(shape: tuple, nc: int) -> bool:
     """Whether the engine runs the ground state of an (M, r) site over
     ``nc`` channels through the kernel: the complex64 channels and the
     kernel's ``k_max + 1`` Krylov vectors (k_max = min(24, M·r)) within
-    :data:`MAX_BYTES`, as :func:`fits` counts them.  A larger site runs
-    ``integrator.ground_state_multi`` over the chain einsums."""
+    :data:`MAX_BYTES`, as :func:`fits` counts them, and a layout of
+    :func:`gs_rule`'s route that fits a CTA's shared memory.  A larger
+    site runs ``integrator.ground_state_multi`` over the chain einsums."""
     M, r = shape
     kmax = min(integrator.GS_BLOCK_DIM, M * r)
-    return 8 * (nc * (M * M + r * r) + (kmax + 1) * M * r) <= MAX_BYTES
+    return (8 * (nc * (M * M + r * r) + (kmax + 1) * M * r) <= MAX_BYTES
+            and gs_rule(M, r, nc) is not None)
 
 
 @functools.lru_cache(maxsize=256)
 def gs_plan(M: int, r: int, nc: int, way: str | None = None
-            ) -> tuple[str, int, bool, int]:
-    """``(way, C, resident, scratch)`` of a ground-state launch, as
-    :func:`plan`: the cluster route on :func:`cluster_size` CTAs, the
-    one-block route as a cluster of one CTA; each CTA
-    holds its rows of the ``k_max + 1`` Krylov vectors in device scratch
-    (complex64 entries).  Raises ValueError where the shared memory of the
-    route does not hold the shape."""
-    if way is None:
-        way = route(M, r, nc)
-    if way not in ROUTES:
+            ) -> tuple[str, int, int, bool, bool, bool, int]:
+    """``(way, C, threads, wide, resident, v_shared, scratch)`` of a
+    ground-state launch: C CTAs of ``threads`` threads (:func:`gs_rule`,
+    or one CTA where ``way`` is ``"block"``), as :func:`_gs_launch_plan`
+    lays them out.  ``way`` is ``"block"`` for one CTA, else
+    ``"cluster"``.  Raises ValueError where the shape has no such
+    route."""
+    if way not in (None, *ROUTES):
         raise ValueError(f"unknown ground_state route {way!r}")
-    size = 1 if way == "block" else cluster_size(M, r, nc) or CLUSTER
-    if smem_bytes(nc, M, r, size) > MAX_SMEM:
-        raise ValueError(f"ground_state: ({M}, {r}) with {nc} channels "
-                         f"does not fit the {way} route of {size} CTAs")
-    resident = smem_bytes(nc, M, r, size, resident=True) <= MAX_SMEM
+    rule = gs_rule(M, r, nc)
+    if rule is None:
+        raise ValueError(f"ground_state: ({M}, {r}) with {nc} channels fits "
+                         "no route")
+    size, threads = rule
+    if way == "block" and size != 1:
+        size, threads = 1, GS_CLUSTER_THREADS
+    if way == "cluster" and size == 1:
+        raise ValueError(f"ground_state: ({M}, {r}) with {nc} channels has "
+                         "no cluster route")
+    return _gs_launch_plan(M, r, nc, size, threads)
+
+
+@functools.lru_cache(maxsize=256)
+def _gs_launch_plan(M: int, r: int, nc: int, size: int, threads: int
+                    ) -> tuple[str, int, int, bool, bool, bool, int]:
+    """:func:`gs_plan`'s tuple for C = ``size`` CTAs of ``threads``
+    threads, any of :func:`gs_candidates` (ValueError otherwise): the
+    layout of :func:`gs_layout`, and the complex64 entries of device
+    scratch for the Krylov vectors' rows where they do not fit in shared
+    memory, then for the wide layout's whole vectors (three a CTA, and the
+    two that carry the exchanges' rows)."""
+    if (size, threads) not in gs_candidates(M, r, nc):
+        raise ValueError(f"ground_state: ({M}, {r}) with {nc} channels has "
+                         f"no route of {size} CTAs of {threads} threads")
+    wide, resident, v_shared = gs_layout(M, r, nc, size)
     kmax = min(integrator.GS_BLOCK_DIM, M * r)
-    return way, size, resident, size * (kmax + 1) * -(-M // size) * r
+    scratch = ((0 if v_shared else size * kmax * -(-M // size) * r)
+               + ((3 * size + 2) * M * r if wide else 0))
+    return ("block" if size == 1 else "cluster", size, threads, wide,
+            resident, v_shared, scratch)
 
 
 def ground_state_plain(H, Rt, v):
@@ -415,11 +528,11 @@ def ground_state(ch, v, *, way: str | None = None):
     iterations, breakdowns]`` (int32), v' normalised.
 
     A CUDA tensor goes through the kernel, every pass in one launch, on
-    the route of :func:`gs_plan` (or ``way``, to compare the routes):
-    complex64 and contiguous, or this raises.  A CPU tensor goes
-    through :func:`ground_state_plain`.  ``ground_state.launches`` counts
-    kernel launches (``route_launches`` by route, ``cluster_launches``
-    the cluster route's by size), ``ground_state.plain_calls`` the CPU
+    the route of :func:`gs_plan` (``way`` ``"block"``: one CTA):
+    complex64 and contiguous, or this raises.  A CPU tensor goes through
+    :func:`ground_state_plain`.  ``ground_state.launches`` counts kernel
+    launches (``route_launches`` by route, ``cluster_launches`` the
+    cluster route's by size), ``ground_state.plain_calls`` the CPU
     calls."""
     H, Rt = ch
     if v.ndim != 2 or H.ndim != 3 or Rt.ndim != 3:
@@ -434,6 +547,23 @@ def ground_state(ch, v, *, way: str | None = None):
     if v.device.type == "cpu":
         ground_state.plain_calls += 1
         return ground_state_plain(H, Rt, v)
+    return _ground_state_launch(ch, v, gs_plan(M, r, nc, way))
+
+
+def _ground_state_on(ch, v, cluster: int, threads: int):
+    """:func:`ground_state` on the card on C = ``cluster`` CTAs of
+    ``threads`` threads, any of :func:`gs_candidates`, to compare the
+    routes (``scripts/relax_step.py --sweep``, the card tests)."""
+    M, r = v.shape
+    return _ground_state_launch(
+        ch, v, _gs_launch_plan(M, r, ch[0].shape[0], cluster, threads))
+
+
+def _ground_state_launch(ch, v, plan):
+    """One launch of the ground-state kernel on ``plan``
+    (:func:`_gs_launch_plan`'s tuple), counted."""
+    H, Rt = ch
+    M, r = v.shape
     if v.device.type != "cuda":
         raise ValueError(f"ground_state: no kernel for device {v.device}")
     for name, t in (("v", v), ("H", H), ("Rt", Rt)):
@@ -443,15 +573,17 @@ def ground_state(ch, v, *, way: str | None = None):
             raise ValueError(f"{name} is on {t.device}, v on {v.device}")
         if not t.is_contiguous():
             raise ValueError(f"the CUDA ground_state takes a contiguous {name}")
-    way, size, resident, nscratch = gs_plan(M, r, nc, way)
+    way, size, nthreads, wide, resident, v_shared, nscratch = plan
     kmax = min(integrator.GS_BLOCK_DIM, M * r)
     out = torch.empty_like(v)
     status = torch.empty(3, dtype=torch.int32, device=v.device)
-    scratch = torch.empty(nscratch, dtype=torch.complex64, device=v.device)
+    scratch = (torch.empty(nscratch, dtype=torch.complex64, device=v.device)
+               if nscratch else None)
     code = _cuda.load().pytdscf_lanczos_gs_c64(
         v.device.index, H.data_ptr(), Rt.data_ptr(), v.data_ptr(),
-        out.data_ptr(), status.data_ptr(), scratch.data_ptr(), nc, M, r,
-        kmax, size, int(resident),
+        out.data_ptr(), status.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), H.shape[0], M, r,
+        kmax, size, nthreads, int(wide), int(resident), int(v_shared),
         torch.cuda.current_stream(v.device).cuda_stream)
     _cuda.check(code, f"ground_state ({way} route)")
     ground_state.launches += 1

@@ -28,8 +28,8 @@ and squaring, the breakdown, convergence and cap tests, and the flags and
 status ``[k_used, bad, relaxed matvecs]``, all on the device.  Driven from
 the host, the program reads one flag per iteration (whether the next one
 runs); inside a captured step the iterations after the first are IF nodes
-of the CUDA graph (``cuda_krylov.GraphBranches``) and nothing is read
-back.  Either way an iteration that does not run launches nothing, and ψ
+of the CUDA graph (``cuda_krylov.GraphBranches``), whose conditions the
+control kernel sets, and nothing is read back.  Either way an iteration that does not run launches nothing, and ψ
 is formed once, from the iterations that ran.  Matvecs take the iteration
 index, so that iterations ``>= relax_after`` can run the relaxed matvec.
 """
@@ -106,10 +106,11 @@ def _program(mv, v0, scale, thresh, k_max, arnoldi, *, exact, relax_after):
     """The unrolled Krylov loop: ``(ψ_next, status)``.
 
     Iteration 0 always runs.  Iteration k ≥ 1 runs where the control step
-    of iteration k−1 left ``flags[0]`` set: read from the host, or, inside
-    a step capture, as an IF node.  ψ = c·V over the iterations that ran:
-    formed at once from the host, or as the IF node ``flags[1+j]`` of the
-    gather over the first j+1 rows."""
+    of iteration k−1 decided so: its ``flags[0]`` read from the host, or,
+    inside a step capture, an IF node whose handle that control step set.
+    ψ = c·V over the iterations that ran: formed at once from the host, or
+    as the IF node of the gather over the first j+1 rows, whose handle the
+    control step of iteration j set where the program stopped there."""
     n = v0.shape[0]
     dtype, dev = v0.dtype, v0.device
     V = torch.zeros((k_max + 1, n), dtype=dtype, device=dev)
@@ -137,13 +138,19 @@ def _program(mv, v0, scale, thresh, k_max, arnoldi, *, exact, relax_after):
                 break
             step(k, mv, state, ctl)
         return c[:k_used] @ V[:k_used], status
+    # the IF nodes' handles, set by the control steps: loops[k] guards
+    # iteration k ≥ 1, gathers[j] the gather over j+1 rows (a handle with
+    # no node may fail the graph's instantiation: loops[0] is none)
+    hs = graph.handles(2 * k_max - 1)
+    loops, gathers = [None, *hs[:k_max - 1]], hs[k_max - 1:]
+    ctl["handles"] = (loops, gathers)
     step(0, mv, state, ctl)
     for k in range(1, k_max):
-        with graph.branch(flags[0:1]):
+        with graph.branch(loops[k]):
             step(k, mv, state, ctl)
     psi = torch.zeros(n, dtype=dtype, device=dev)
     for j in range(k_max):
-        with graph.branch(flags[1 + j:2 + j]):
+        with graph.branch(gathers[j]):
             psi.copy_(c[:j + 1] @ V[:j + 1])
     return psi, status
 

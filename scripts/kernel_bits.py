@@ -14,8 +14,11 @@ and (72, 12), the cluster MGS QR at (1024, 64) (``qr_cluster_*``), the
 relaxed matvecs
 ``heff_lo`` and ``keff_lo`` and the bf16x3 chain in its four mappings
 (``chain_left``, ``chain_right``, ``chain_heff``, ``chain_keff``) at the
-χ=1024 radical pair's bulk shape and a ragged one; then the earlier
-main paths end to end (``path_*``: the chain's ⟨H⟩ and cores and the
+χ=1024 radical pair's bulk shape and a ragged one; the ground state at
+the butadiene bulk, a one-CTA shape and a streamed one with its status
+(``gs_*``); the
+Krylov control step at k_used 5, 8 and 32 with and without a Gram
+matrix (``ctl_*``); then the earlier main paths end to end (``path_*``: the chain's ⟨H⟩ and cores and the
 radical pair's populations at both rungs after three steps, each built by
 ROOT's own ``chip_smoke.py``).  ``compare`` exits 1
 unless two such files are equal bit for bit, except for the outputs named
@@ -27,7 +30,7 @@ GPU and nvcc, e.g. for a checkout of the parent commit unpacked under
     python3 scripts/kernel_bits.py dump parent out/parent.npz
     python3 scripts/kernel_bits.py dump . out/this.npz
     python3 scripts/kernel_bits.py compare out/parent.npz out/this.npz \
-        --expect-differ mgs,site,path
+        --expect-differ gs,ctl,path
 
 (one script, this one, dumps both trees, so their outputs have the same
 names).
@@ -133,11 +136,79 @@ def dump(root: str, path: str) -> None:
         res[f"chain_heff_{tag}"] = out.cpu().numpy()
         out = CR.keff_hi(CR.keff_operands(L, R), t(_cx(rng, k, o)))
         res[f"chain_keff_{tag}"] = out.cpu().numpy()
+    res.update(_ground_states(rng, t))
+    res.update(_control_steps(rng))
     res.update(_paths())
     torch.cuda.synchronize()
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **res)
     print(f"kernel_bits: {len(res)} outputs of {root} in {path}")
+
+
+def _ground_states(rng, t) -> dict:
+    """The ground-state kernel (``gs_*``) on seeded Hermitian channels at
+    the butadiene bulk shape ((72, 12), 30 channels, a cluster) and at a
+    one-CTA H2O shape ((9, 9), 5 channels), each on its default route,
+    and at (200, 20) with 10 channels, whose rows of H stream through
+    slices (its inputs from a generator of its own): the vector and the
+    status."""
+    from pytdscf_torch.mps import cuda_lanczos as CL
+
+    res = {}
+    for tag, (nc, M, r), g in (("bulk", (30, 72, 12), rng),
+                               ("small", (5, 9, 9), rng),
+                               ("streamed", (10, 200, 20),
+                                np.random.default_rng(7))):
+        H, Rt = _cx(g, nc, M, M), _cx(g, nc, r, r)
+        H = (H + H.transpose(0, 2, 1).conj()) / 2
+        Rt = (Rt + Rt.transpose(0, 2, 1).conj()) / 2
+        out, st = CL.ground_state((t(H), t(Rt)), t(_cx(g, M, r)))
+        res[f"gs_{tag}_out"] = out.cpu().numpy()
+        res[f"gs_{tag}_status"] = st.cpu().numpy()
+    return res
+
+
+def _control_steps(rng) -> dict:
+    """The Krylov control kernel (``ctl_*``) at k_used 5, 8 and 32, each
+    with an Arnoldi Hessenberg T and with a Lanczos T and its Gram matrix:
+    the new coefficients, flags and status."""
+    import torch
+
+    from pytdscf_torch.mps import cuda_krylov as CK
+
+    res = {}
+    for m in (5, 8, 32):
+        for gram in (False, True):
+            kmax = max(m, 8)
+            T = np.zeros((kmax + 1, kmax + 1), dtype=complex)
+            if gram:
+                a, b = rng.standard_normal(m), np.abs(rng.standard_normal(m))
+                T[:m, :m] = np.diag(a) + np.diag(b[:-1], 1) + np.diag(b[:-1], -1)
+                T[m, m - 1] = b[-1]
+                A = _cx(rng, kmax + 1, kmax + 1)
+                G = np.eye(kmax + 1) + 0.05 * (A @ A.conj().T)
+            else:
+                T[:m, :m] = np.triu(_cx(rng, m, m), -1) * 4.0
+                T[m, m - 1] = 1.0
+                G = None
+            c = np.zeros(kmax, dtype=complex)
+            c[:m - 1] = 0.1 * _cx(rng, m - 1)
+
+            def dev(a):
+                return torch.as_tensor(a, dtype=torch.complex64,
+                                       device="cuda").contiguous()
+
+            cc = dev(c)
+            flags = torch.zeros(kmax + 1, dtype=torch.bool, device="cuda")
+            status = torch.zeros(3, dtype=torch.int32, device="cuda")
+            CK.krylov_ctl(dev(T), None if G is None else dev(G), cc, flags,
+                          status, k=m - 1, scale=-0.25j, thresh=1e-6,
+                          exact=False, relax_after=1)
+            tag = f"ctl_m{m}_{'lanczos' if gram else 'arnoldi'}"
+            res[f"{tag}_c"] = cc.cpu().numpy()
+            res[f"{tag}_flags"] = flags.cpu().numpy()
+            res[f"{tag}_status"] = status.cpu().numpy()
+    return res
 
 
 def _paths() -> dict:

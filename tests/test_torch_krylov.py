@@ -322,11 +322,16 @@ def _ctl_inputs(rng, k, kmax, gram, dev, b=1.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kmax", [7, 32, 64])
+@pytest.mark.parametrize("kmax", [7, 9, 32, 64])
 @pytest.mark.parametrize("gram", [False, True])
 def test_control_kernel_matches_plain(cuda, kmax, gram):
+    """The control kernel against its plain version at k_used = m = 1, 2,
+    8 (the one-warp kernel, m <= 8), 9, 32 and 64 (the block kernel), as
+    far as k_max allows, and at m = 4 and k_max / 2."""
     rng = np.random.default_rng(kmax)
-    for k in (0, 3, kmax // 2, kmax - 1):
+    ms = sorted({1, 2, 4, 8, 9, 32, 64, kmax // 2, kmax} & set(range(1, kmax + 1)))
+    for m in ms:
+        k = m - 1
         T, G, c = _ctl_inputs(rng, k, kmax, gram, cuda)
         out = {}
         for way, dev in (("kernel", cuda), ("plain", torch.device("cpu"))):
@@ -350,16 +355,17 @@ def test_control_kernel_matches_plain(cuda, kmax, gram):
 
 @pytest.mark.cuda
 def test_if_nodes_run_only_flagged_bodies(cuda):
-    """Three IF nodes in a row, each guarded by the flag the body before it
-    writes: a replay runs the bodies up to the first unset flag, what a
-    body allocated stays the graph's, and the control kernel in each body
-    counts on the device only the launches that ran."""
+    """A Krylov program's IF nodes in a row, their conditions set by the
+    control kernel itself: iteration k's body runs where the control step
+    of iteration k−1 did not stop (here: no breakdown, ``T[k, k−1] = 1``),
+    the gather node of the iteration that stopped runs and no other, what
+    a body allocated stays the graph's, and the control kernel counts on
+    the device only the launches that ran."""
     from pytdscf_torch.mps import step_graph
 
-    x = torch.zeros(4, device=cuda)
-    flag = torch.ones(1, dtype=torch.bool, device=cuda)
-    stop = torch.zeros(1, dtype=torch.int32, device=cuda)
     kmax = 4
+    x = torch.zeros(4, device=cuda)
+    stop_at = torch.full((1,), -1.0, device=cuda)
     T = torch.zeros((kmax + 1, kmax + 1), dtype=torch.complex64, device=cuda)
     c = torch.zeros(kmax, dtype=torch.complex64, device=cuda)
     ctl_flags = torch.zeros(kmax + 1, dtype=torch.bool, device=cuda)
@@ -368,26 +374,38 @@ def test_if_nodes_run_only_flagged_bodies(cuda):
         T.device.index, torch.zeros(1, dtype=torch.int32, device=cuda))
     branches = CK.GraphBranches(cuda, False, lambda: [], step_graph._diff)
     graph = torch.cuda.CUDAGraph()
+    kw = dict(scale=-0.5j, thresh=1e-6, exact=False, relax_after=None)
     with torch.cuda.graph(graph):
-        for j in range(3):
-            with branches.branch(flag[0:1]):
-                y = torch.full((4,), float(j + 1), device=cuda)
+        hs = branches.handles(2 * kmax - 1)
+        handles = ([None, *hs[:kmax - 1]], hs[kmax - 1:])
+        CK.krylov_ctl(T, None, c, ctl_flags, status, k=0, handles=handles,
+                      **kw)
+        for k in range(1, kmax):
+            with branches.branch(handles[0][k]):
+                y = torch.full((4,), float(k), device=cuda)
                 x.add_(y)
-                CK.krylov_ctl(T, None, c, ctl_flags, status, k=j,
-                              scale=-0.5j, thresh=1e-6, exact=False,
-                              relax_after=None)
-                flag.copy_((stop > j).reshape(1))
-    for n_stop, want, runs in ((0, 1.0, 1), (1, 3.0, 2), (5, 6.0, 3)):
+                CK.krylov_ctl(T, None, c, ctl_flags, status, k=k,
+                              handles=handles, **kw)
+        for j in range(kmax):
+            with branches.branch(handles[1][j]):
+                stop_at.fill_(float(j))
+    # n_live iterations without a breakdown: T[k+1, k] = 1 for k < n_live
+    for n_live, want, runs in ((0, 0.0, 1), (1, 1.0, 2), (2, 3.0, 3),
+                               (5, 6.0, 4)):
+        T.zero_()
+        for k in range(min(n_live, kmax)):
+            T[k + 1, k] = 1.0
+        c.zero_()
         x.zero_()
         count.zero_()
-        flag.fill_(True)
-        stop.fill_(n_stop)
+        stop_at.fill_(-1.0)
         graph.replay()
         junk = torch.full((1 << 16,), 7.0, device=cuda)
         torch.cuda.synchronize()
         assert torch.equal(x, torch.full((4,), want, device=cuda))
         assert bool((junk == 7.0).all())
         assert int(count) == runs
+        assert float(stop_at) == runs - 1
     count.zero_()
 
 

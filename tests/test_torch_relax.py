@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cluster_replay as replay
 from pytdscf_torch import Simulator, units
 from pytdscf_torch.basis.ho import PrimBas_HO
 from pytdscf_torch.config import Config
@@ -171,6 +172,103 @@ def test_ground_state_channels_plain():
     assert abs(torch.vdot(vec[:, 0], x)).item() > 1 - 1e-10
     assert CL.gs_fits((M, r), nc)
     assert not CL.gs_fits((4096, 64), 64)
+
+
+@pytest.mark.parametrize("nc,M,r,C", [(6, 20, 4, 16), (3, 6, 3, 1)])
+def test_ground_state_schedule_replay_matches_plain_c128(nc, M, r, C):
+    """The ground-state kernel's schedule (``tests/torch_cluster_replay.py``:
+    each rank's rows of the matvec, u = H v_k − β v_{k−1} on its rows, α
+    and the Ritz norm and energy as rank-ordered partials, the update, β
+    and v_{k+1} on the whole vector) on a bulk-like cluster of 16 (ranks
+    past the end own no rows) and on one CTA equals the plain version in
+    complex128: energies to 1e-12, |⟨replay|plain⟩| ≥ 1 − 1e-12, the same
+    passes, iterations and breakdowns."""
+    rng = np.random.default_rng(nc * 1000 + M)
+    H = rng.normal(size=(nc, M, M)) + 1j * rng.normal(size=(nc, M, M))
+    H = torch.from_numpy((H + H.conj().transpose(0, 2, 1)) / (2 * M))
+    Rt = rng.normal(size=(nc, r, r)) + 1j * rng.normal(size=(nc, r, r))
+    Rt = torch.from_numpy((Rt + Rt.conj().transpose(0, 2, 1)) / (2 * r))
+    v = torch.from_numpy(rng.normal(size=(M, r)) + 1j * rng.normal(size=(M, r)))
+    got, st = replay.ground_state(H, Rt, v, C)
+    want, st_p = CL.ground_state_plain(H, Rt, v)
+
+    def energy(x):
+        return torch.vdot(x.reshape(-1), CL._matvec(H, Rt, x).reshape(-1)).real
+
+    assert st == st_p.tolist()
+    assert abs(float(energy(got) - energy(want.reshape(M, r)))) < 1e-12
+    assert abs(torch.vdot(got.reshape(-1), want.reshape(-1))).item() > 1 - 1e-12
+
+
+def test_gs_plan_at_the_relax_shapes():
+    """The ground state's own route rule at every site shape of the relax
+    stages (``gs_rule``, PERF.md §6): the cluster size and block size per
+    shape, a layout that fits the CTA's shared memory, every route the
+    rule picks among the kernel's candidates."""
+    want = {(5, 9, 9): ("block", 1, 128), (3, 81, 9): ("cluster", 16, 512),
+            (1, 81, 1): ("block", 1, 128), (5, 6, 6): ("block", 1, 128),
+            (11, 36, 12): ("cluster", 16, 512),
+            (20, 72, 12): ("cluster", 16, 512),
+            (26, 72, 12): ("cluster", 16, 512),
+            (30, 72, 12): ("cluster", 16, 512),
+            (11, 72, 12): ("cluster", 16, 512),
+            (5, 72, 6): ("cluster", 16, 512), (1, 36, 1): ("block", 1, 128)}
+    assert sorted(want) == sorted(RELAX_SHAPES)
+    for (nc, M, r), route in want.items():
+        plan = CL.gs_plan(M, r, nc)
+        assert plan[:3] == route, (nc, M, r)
+        assert CL.gs_fits((M, r), nc)
+        assert plan[1:3] in CL.gs_candidates(M, r, nc)
+        kmax = min(TI.GS_BLOCK_DIM, M * r)
+        assert plan[3:6] == (False, True, True), (nc, M, r)
+        assert CL.gs_smem_bytes(nc, M, r, plan[1], kmax,
+                                *plan[3:6]) <= CL.GS_MAX_SMEM
+    with pytest.raises(ValueError):
+        CL._gs_launch_plan(72, 12, 30, 1, 512)
+
+
+#: (channels, M, r) at which ``gs_plan`` takes each layout ``(wide,
+#: resident, v_shared)`` of a ground-state CTA (``gs_layout``)
+GS_LAYOUT_SHAPES = {
+    (5, 9, 9): (False, True, True), (2, 4, 111): (False, True, False),
+    (30, 114, 4): (False, False, True), (10, 200, 20): (False, False, False),
+    (3, 353, 4): (True, True, True), (2, 97, 99): (True, True, False),
+    (4, 300, 30): (True, False, True), (2, 369, 28): (True, False, False),
+}
+
+
+@pytest.mark.parametrize("nc,M,r", sorted(GS_LAYOUT_SHAPES))
+def test_gs_plan_layouts(nc, M, r):
+    """Each layout of a ground-state CTA at a shape that takes it: the
+    kernel takes the site (``gs_fits``), its shared memory fits, the wide
+    layout asks device scratch for its (3·C + 2)·M·r whole-vector entries
+    and the rows of the Krylov vectors for C·k_max·Mc·r where not
+    shared."""
+    wide, resident, v_shared = GS_LAYOUT_SHAPES[nc, M, r]
+    assert CL.gs_fits((M, r), nc)
+    way, C, threads, *layout, scratch = CL.gs_plan(M, r, nc)
+    assert tuple(layout) == (wide, resident, v_shared)
+    kmax = min(TI.GS_BLOCK_DIM, M * r)
+    assert CL.gs_smem_bytes(nc, M, r, C, kmax, *layout) <= CL.GS_MAX_SMEM
+    assert scratch == ((0 if v_shared else C * kmax * -(-M // C) * r)
+                       + ((3 * C + 2) * M * r if wide else 0))
+
+
+def test_gs_fits_every_lanczos_site():
+    """The ground-state kernel takes every site whose working set the
+    Lanczos exponential's kernel takes (within ``MAX_BYTES``, its shared
+    memory on the route it picks: the rule the ground state followed
+    before it had layouts of its own), on a grid of shapes up to M·r ≈ 25
+    k entries."""
+    for M in range(1, 400, 3):
+        for r in (1, 2, 3, 4, 6, 9, 12, 20, 30, 50, 64, 100, 150, 200):
+            for nc in (1, 3, 8, 16, 30, 64):
+                kmax = min(TI.GS_BLOCK_DIM, M * r)
+                size = CL.cluster_size(M, r, nc) or 1
+                if (8 * (nc * (M * M + r * r) + (kmax + 1) * M * r)
+                        <= CL.MAX_BYTES
+                        and CL.smem_bytes(nc, M, r, size) <= CL.MAX_SMEM):
+                    assert CL.gs_fits((M, r), nc), (nc, M, r)
 
 
 # ---------------------------------------------------- the engine
@@ -318,32 +416,77 @@ def _random_channels(rng, nc, M, r, device):
             for x in (H, Rt, v)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("nc,M,r,way", [
-    (5, 6, 6, "block"), (11, 36, 12, None), (30, 72, 12, None),
-    (5, 81, 9, "block"), (3, 81, 1, None),
-])
-def test_ground_state_kernel_matches_plain(cuda, nc, M, r, way):
-    """The kernel against its plain version on random channels at the
-    butadiene and H2O shapes, on each route: energies to 1e-6 relative,
-    |⟨kernel|plain⟩| ≥ 1 − 1e-5, unit norm, a second launch bit-identical
-    (float32 sums in another order: the pass counts may differ)."""
+#: (channels, M, r) of every site shape of the relax stages'
+#: ``chip_smoke.py`` runs: H2O (3 modes, 9 primitives, D=9) and butadiene
+#: (14 modes, 6 primitives, D=12)
+RELAX_SHAPES = [(5, 9, 9), (3, 81, 9), (1, 81, 1), (5, 6, 6), (11, 36, 12),
+                (20, 72, 12), (26, 72, 12), (30, 72, 12), (11, 72, 12),
+                (5, 72, 6), (1, 36, 1)]
+
+
+def _gs_check(cuda, nc, M, r, **route):
+    """The kernel on ``route`` against its plain version on random
+    channels: energies to 1e-6 relative, |⟨kernel|plain⟩| ≥ 1 − 1e-5, unit
+    norm, a second launch bit-identical (float32 sums in another order:
+    the pass counts may differ); the launch counted on its route."""
     H, Rt, v = _random_channels(np.random.default_rng(M * 100 + r), nc, M,
                                 r, cuda)
-    out, st = CL.ground_state((H, Rt), v, way=way)
-    again, _ = CL.ground_state((H, Rt), v, way=way)
+    if "cluster" in route:
+        way, size = CL._gs_launch_plan(M, r, nc, route["cluster"],
+                                       route["threads"])[:2]
+
+        def run():
+            return CL._ground_state_on((H, Rt), v, **route)
+    else:
+        way, size = CL.gs_plan(M, r, nc, **route)[:2]
+
+        def run():
+            return CL.ground_state((H, Rt), v, **route)
+    before = dict(CL.ground_state.route_launches)
+    out, st = run()
+    again, _ = run()
     want, _ = CL.ground_state_plain(H, Rt, v)
 
     def energy(x):
         return torch.vdot(x.reshape(-1),
                           CL._matvec(H, Rt, x).reshape(-1)).real.item()
 
+    assert CL.ground_state.route_launches[way] == before[way] + 2
+    assert (way == "block") == (size == 1)
     assert torch.equal(out, again)
     assert abs(energy(out) - energy(want)) <= 1e-6 * abs(energy(want))
     assert abs(torch.vdot(out.reshape(-1), want.reshape(-1))).item() > 1 - 1e-5
     assert abs(torch.linalg.vector_norm(out).item() - 1) < 1e-5
     passes, iters, _ = st.tolist()
     assert 2 <= passes <= TI.GS_MAX_RESTARTS and iters >= passes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,M,r,way", [
+    *[(*shape, None) for shape in RELAX_SHAPES],
+    (5, 6, 6, "block"), (5, 81, 9, "block"), (3, 81, 1, None),
+    *[(*shape, None) for shape in sorted(GS_LAYOUT_SHAPES)
+      if shape not in RELAX_SHAPES],
+])
+def test_ground_state_kernel_matches_plain(cuda, nc, M, r, way):
+    """The kernel against its plain version at every shape of the relax
+    stages on the route and cluster size that ``gs_plan`` picks, on one
+    CTA where asked, and on each layout of a CTA (``GS_LAYOUT_SHAPES``:
+    H's rows resident or streamed, the Krylov vectors' rows in shared
+    memory or device scratch, the whole vectors in shared memory or, wide,
+    in device scratch), the layout asserted."""
+    if (nc, M, r) in GS_LAYOUT_SHAPES:
+        assert CL.gs_plan(M, r, nc, way)[3:6] == GS_LAYOUT_SHAPES[nc, M, r]
+    _gs_check(cuda, nc, M, r, way=way)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,M,r", [(30, 72, 12), (3, 81, 9), (5, 9, 9)])
+def test_ground_state_kernel_every_route(cuda, nc, M, r):
+    """The kernel on every cluster size and block size it takes
+    (``gs_candidates``) at a butadiene bulk and two H2O shapes."""
+    for size, threads in CL.gs_candidates(M, r, nc):
+        _gs_check(cuda, nc, M, r, cluster=size, threads=threads)
 
 
 @pytest.mark.cuda
@@ -394,7 +537,7 @@ def test_site_kernel_real_scale(cuda):
 @pytest.mark.cuda
 def test_ground_state_kernel_on_butadiene_bulk(cuda):
     """The kernel against its plain version on the butadiene bulk site's
-    own operands (D=12, 30 channels, 16 CTAs) after one improved step on
+    own operands (D=12, 30 channels, a cluster) after one improved step on
     the card, the state's centre moved to the site: the energies to 1e-6
     relative and |⟨kernel|plain⟩| ≥ 1 − 1e-5."""
     from pytdscf_torch.mps import kernels as K
@@ -420,7 +563,7 @@ def test_ground_state_kernel_on_butadiene_bulk(cuda):
     psi = engine.cores[0][p]
     l, d, r = psi.shape
     v = psi.reshape(l * d, r).contiguous()
-    assert CL.gs_plan(l * d, r, ch[0].shape[0])[:2] == ("cluster", 16)
+    assert CL.gs_plan(l * d, r, ch[0].shape[0])[0] == "cluster"
     out, _ = CL.ground_state(ch, v)
     want, _ = CL.ground_state_plain(*ch, v)
 

@@ -1,6 +1,7 @@
 """A replay, in plain torch on the CPU, of the cluster routes of the port's
 Lanczos and fused-site kernels (``csrc/tdvp_device.cuh``'s cluster layer,
-``csrc/lanczos_expm.cu``, ``csrc/site_step.cu``).
+``csrc/lanczos_expm.cu``, ``csrc/site_step.cu``) and of the ground-state
+kernel's schedule (``csrc/lanczos_gs.cu``, :func:`ground_state`).
 
 It runs their algorithm as the CTAs of a cluster of C run it, rank by
 rank: rank q owns rows [q·Mc, min(M, (q+1)·Mc)), Mc = ceil(M / C), of
@@ -17,9 +18,12 @@ tests hold it, in complex128, to ``lanczos_expm_plain`` and
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from pytdscf_torch.mps import cuda_lanczos as CL
+from pytdscf_torch.mps import integrator as TI
 from pytdscf_torch.mps import cuda_qr as CQ
 from pytdscf_torch.mps import cuda_site as CS
 
@@ -143,3 +147,70 @@ def site_step(psi, next_core, L, W, R, scale, thresh, lL, lR, *, forward,
     return CS._outputs(gather(Q_rows), sig1 @ nxt.reshape(r, -1),
                        blk.permute(1, 0, 2), log_new, status, p.shape,
                        nxt.shape, forward)
+
+
+def ground_state(H, Rt, v, C):
+    """The ground-state kernel's schedule on a cluster of C CTAs: every CTA
+    holds each Krylov vector whole and does the vector work on all of it;
+    rank q computes its rows of each matvec and contributes, per
+    iteration, its rows of u = H v_k − β_{k−1} v_{k−1} and its partial of
+    α_k = Re⟨v_k|H v_k⟩; α is the partials in rank order, then w = u −
+    α v_k, β = ‖w‖ and v_{k+1} = w / β whole.  Per pass the Ritz vector's
+    rows with their partial norms (summed in rank order), and the energy
+    as the rank-ordered partials of Re⟨g|H g⟩.  T's lowest eigenpair by
+    ``eigh`` over the iterations that ran.  Returns (v', [passes,
+    iterations, breakdowns])."""
+    M, r = v.shape
+    splits = row_split(M, C)
+    kmax = min(TI.GS_BLOCK_DIM, M * r)
+
+    def rows_mv(x):
+        return matvec(H, Rt, [x[s] for s in splits], splits, 1.0)
+
+    def vnorm(x):
+        return torch.sqrt(torch.sum(torch.abs(x) ** 2))
+
+    g = v / vnorm(v)
+    passes = iters = breaks = 0
+    e_prev = math.inf
+    while True:
+        x = g / vnorm(g)
+        V = [[x[s] for s in splits]]
+        prev, alpha, beta = None, [], []
+        broke = False
+        for k in range(kmax):
+            y = rows_mv(x)
+            parts = [torch.sum(x[s].conj() * yq).real
+                     for s, yq in zip(splits, y)]
+            u = [yq - beta[k - 1] * prev[s] if k > 0 else yq
+                 for s, yq in zip(splits, y)]
+            al = rank_sum(parts)
+            w = gather(u) - al * x
+            bk = float(vnorm(w))
+            live = bk > CL.EPS_BREAKDOWN
+            prev, x = x, (w / bk if live else torch.zeros_like(w))
+            alpha.append(float(al))
+            beta.append(bk)
+            V.append([x[s] for s in splits])
+            broke = bk < CL.EPS_BREAKDOWN
+            if broke:
+                break
+        k_fin = len(alpha)
+        T = (torch.diag(torch.tensor(alpha, dtype=torch.float64))
+             + torch.diag(torch.tensor(beta[:k_fin - 1], dtype=torch.float64), 1)
+             + torch.diag(torch.tensor(beta[:k_fin - 1], dtype=torch.float64), -1))
+        yv = torch.linalg.eigh(T)[1][:, 0].to(v.dtype)
+        g_rows = [sum(yv[j] * V[j][q] for j in range(k_fin))
+                  for q in range(len(splits))]
+        nrm = torch.sqrt(rank_sum([torch.sum(torch.abs(gq) ** 2)
+                                   for gq in g_rows]))
+        g = gather(g_rows) / nrm
+        e = float(rank_sum([torch.sum(g[s].conj() * hq).real
+                            for s, hq in zip(splits, rows_mv(g))]))
+        passes += 1
+        iters += k_fin
+        breaks += int(broke)
+        if not (abs(e - e_prev) > TI.GS_TOL) or passes >= TI.GS_MAX_RESTARTS:
+            break
+        e_prev = e
+    return g, [passes, iters, breaks]
