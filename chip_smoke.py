@@ -186,20 +186,43 @@ Phases (any failure exits nonzero, before the result line):
    at the bulk (200, 20) H step on the cluster, timed;
 17. donor–acceptor model B at ``examples/donor_acceptor_model_b.py``'s own
    settings (114 sites, nfock 28, D=20, 0.2 fs, the 26 level projectors
-   every 10 steps: each step host-driven), 20 steps (its Hamiltonian built
+   every 10 steps: each step host-driven), 10 steps (its Hamiltonian built
    in a child process while phases 3-15 run): the per-site census of its
    Krylov routes (the einsum program where the channels pass
    ``cuda_lanczos.fits``, one block, the cluster) and the Lanczos launches
-   equal to it, the 26 populations at steps 10 and 20 against the gold and
+   equal to it, the 26 populations after step 10 against the gold and
    their sums; each route on its own operands (the Lanczos kernel at the
    one-block and the cluster H step against its plain version, the einsum
    program's control steps through ``krylov_ctl`` against its plain
    version, each timed), MGS at the (560, 20) gauge; then without
    observables one replayed step against the same step host-driven (Krylov
-   statistics, launches, populations) and 8 timed replays;
+   statistics, launches, populations) and 4 timed replays;
 18. the DVR grid models at their tests' sizes: Hénon–Heiles in both
    parameter sets (energy within 1e-6 of the literals) and H2CO's 6-mode
-   SOP model (e10 − e0 within 1e-6).
+   SOP model (e10 − e0 within 1e-6);
+19. several electronic states (one MPS a state, a fused MPO a coupled
+   state pair, the pair sums batched by MPO shape: ``mps/pairs.py``):
+   a. the Ambrosek aggregate of ``tests/test_relax_operate.py`` (2 states,
+      4 modes, 5 primitives, D 4/5) through ``Simulator.relax``
+      (imaginary time, and improved relaxation to the ZPE),
+      ``propagate`` (the default stride: replays) and both again from
+      ``proj_gs``'s start: each ⟨H⟩ within its bar of its literal (three
+      times the port's complex64 CPU run's distance, at least 1e-9:
+      ``scripts/a3_gold.py``); ``operate`` with the transition dipole
+      (two state pairs) on the improved ground state against the same on
+      the CPU in complex128; no Lanczos, fused-site or ground-state launch,
+      one MGS launch a state a gauge move;
+   b. the 27-state LH2 exciton model (``matJ_LH2_exciton``: 189 state
+      pairs, 27 sites of 8 primitives, D=8, dt 0.5 fs) through
+      ``Simulator.propagate``, 20 steps host-driven: every populations row
+      and ⟨H⟩ at the end against ``scripts/a3_gold.json`` (the JAX package
+      in complex128), the sums, 27 × 26 × 2 MGS launches a step and one
+      ``krylov_ctl`` launch a Krylov iteration; the kernels of the path on
+      its operands at the bulk (``krylov_ctl`` on the H step's control
+      steps, MGS at (64, 8) live and with no weight, and at (8, 8), each
+      timed beside ``torch.linalg.qr`` / ``torch.linalg.matrix_exp``), the
+      launches of one pair-sum matvec; then a replayed step under the
+      profiler against the same step host-driven and 8 timed replays.
 
 Every run of the chain gates the complex64 ⟨H⟩ it reports at 5e-6: the
 engine contracts ⟨H⟩ in complex128 and rounds only the value to
@@ -3531,37 +3554,29 @@ PYRAZINE_AC_TOL = 1.24e-04
 PYRAZINE_TRACED_STEPS = 33
 # donor–acceptor model B at examples/donor_acceptor_model_b.py's own
 # settings (13 fragments, 8 F and 8 OT modes, nfock 28, D=20, dt 0.2 fs,
-# the 26 level projectors every 10 steps), 20 host-driven steps (cut from
-# 1000), then MODEL_B_REPLAYS replayed steps without observables; its gold
-# from scripts/a4_gold.py as above: the 26 populations at step 10 (the
-# .dat row, 9 decimals) and after step 20
-MODEL_B_STEPS = 20
+# the 26 level projectors every 10 steps), 10 host-driven steps (cut from
+# 1000; 20 until the several-state phase took their time), then
+# MODEL_B_REPLAYS replayed steps without observables; its gold from
+# scripts/a4_gold.py's run of MODEL_B_GOLD_STEPS steps as above: the 26
+# populations after step 10 (its .dat row, 9 decimals)
+MODEL_B_STEPS = 10
+MODEL_B_GOLD_STEPS = 20
 MODEL_B_DT = 0.2
 MODEL_B_EVERY = 10
-MODEL_B_REPLAYS = 8
+MODEL_B_REPLAYS = 4
 MODEL_B_NFOCK = 28
 MODEL_B_BOND = 20
 # the bar: three times the port's complex64 CPU run against the gold,
-# 9.80e-7 (step 20; step 10: 8.93e-7); a complex64 expectation carries the
-# rounding of its log-scale, |log|·2⁻²⁴ relative (step 0 reads LE₁
-# 0.999998629)
+# 9.80e-7 (after step 20, which the smoke no longer runs; after step 10:
+# 8.93e-7), the bar step 10 has had since the phase was written; a
+# complex64 expectation carries the rounding of its log-scale, |log|·2⁻²⁴
+# relative (step 0 reads LE₁ 0.999998629)
 MODEL_B_POP_TOL = 2.9e-06
 GOLD_MODEL_B = {
     "10": [
         0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 8e-09, 1.398e-06, 0.000164176,
         0.010642041, 0.296560555, 0.616307226, 0.074418346, 0.001885986,
         2.0145e-05, 1.19e-07, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
-    ],
-    "20": [
-        1.7911887667334418e-23, 5.617420525733261e-21, 1.5066271378165197e-18,
-        3.3890132977346015e-16, 6.283980351432953e-14, 9.403418127149756e-12,
-        1.1069144109560411e-09, 9.895859922840681e-08, 6.42203798642289e-06,
-        0.0002837068167086986, 0.007728974973709129, 0.10935237654090307,
-        0.5902415877387384, 0.11839463204901826, 0.15230580571538666,
-        0.020660792315999564, 0.0009999903983070842, 2.521403894392807e-05,
-        3.930873449237499e-07, 4.1794632976138215e-09, 3.2306392048752953e-11,
-        1.8993502411234827e-13, 8.784389826879964e-16, 3.2808062381446604e-18,
-        1.0104366252745852e-20, 2.6214028954689925e-23,
     ],
 }
 POP_SUM_TOL = 1.0e-05
@@ -3576,6 +3591,130 @@ HENON_HEILES = {
     "2d": (2000, 1.0e-03, 2, 5, 4, 0.001, 0.018225341011652626),
 }
 DVR_E_TOL = 1.0e-06
+
+
+# several electronic states (ROADMAP A3). The Ambrosek aggregate of
+# tests/test_relax_operate.py (2 molecules, 2 modes each, 5 HO primitives):
+# each case (kind, coupled: coupleJ −0.04 eV, bond, proj_gs, steps, dt fs)
+# with its literal (the improved case: the ZPE Σω/au_in_cm1)
+AMBROSEK_FREQS = (763.31, 1556.64)
+AMBROSEK_DISPS = (0.317, 0.429)
+AMBROSEK_NPRIM = 5
+AMBROSEK = {
+    "imag_relax": ("imaginary", False, 4, False, 2, 0.05, 0.010570469969995883),
+    "propagate": ("propagate", False, 4, False, 3, 0.05, 0.010570469969995852),
+    "projgs_propagate": ("propagate", True, 5, True, 3, 0.05,
+                         0.011397875485012856),
+    "projgs_imag_relax": ("imaginary", True, 5, True, 2, 0.05,
+                          0.011367589141866094),
+    "improved": ("improved", False, 4, False, 5, 0.1, None),
+}
+# the bars: three times the port's own complex64 run on the CPU
+# (scripts/a3_gold.py ambrosek --port complex64) from each literal, at least
+# 1e-9: 1.661e-9, 2.584e-9, 2.348e-9, 8.805e-10 and 1.661e-9 from them
+# operate: the improved case's ground state under the transition dipole
+# (ambrosek_dipole), ‖μ|Ψ⟩‖ and the fitted populations against the same
+# through the port's plain versions on the CPU in complex128
+AMBROSEK_MU = 0.01
+AMBROSEK_OPERATE_TOL = 1.0e-5
+AMBROSEK_BARS = {"imag_relax": 4.99e-9, "propagate": 7.76e-9,
+                 "projgs_propagate": 7.05e-9, "projgs_imag_relax": 2.65e-9,
+                 "improved": 4.99e-9}
+# the 27-state LH2 exciton model (util.helper_input.matJ_LH2_exciton: 27
+# pigments, one mode of 203.3 cm⁻¹ each, S = 0.056), 8 HO primitives a
+# pigment, D=8, the whole weight on state 0, dt 0.5 fs: 189 state pairs;
+# LH2_STEPS host-driven steps against scripts/a3_gold.py's gold (the JAX
+# package in complex128), then LH2_REPLAYS replayed steps
+LH2_STEPS = 20
+LH2_DT = 0.5
+LH2_BOND = 8
+LH2_NPRIM = 8
+LH2_GOLD = "scripts/a3_gold.json"
+LH2_REPLAYS = 8
+# the bars: three times the port's complex64 CPU run (scripts/a3_gold.py
+# lh2 --port complex64) from the gold: its populations 5.36e-7 (step 13;
+# the .dat rows carry 9 decimals), its ⟨H⟩ after the last step 1.106e-6
+# relative (thresh 1e-7 in complex64 against the gold's 1e-9 in
+# complex128)
+LH2_POP_TOL = 1.61e-6
+LH2_E_TOL = 3.32e-6
+
+
+def ambrosek_literal(case: str) -> float:
+    from pytdscf_torch import units
+
+    literal = AMBROSEK[case][-1]
+    return sum(AMBROSEK_FREQS) / units.au_in_cm1 if literal is None else literal
+
+
+def ambrosek_model(pkg: str, coupled: bool, bond: int, proj_gs: bool,
+                   excited: bool = False):
+    """tests/test_relax_operate.py's aggregate, built by the package named
+    ``pkg`` (the smoke's is the port, ``pytdscf_torch``): ``coupled``
+    coupleJ −0.04 eV, else 0; ``proj_gs`` with ``primbas_gs`` set;
+    ``excited`` the improved case's mixed vibrational start."""
+    import importlib
+
+    def mod(path):
+        return importlib.import_module(f"{pkg}.{path}")
+
+    units, ho = mod("units"), mod("basis").PrimBas_HO
+    s0 = [ho(0.0, f, AMBROSEK_NPRIM) for f in AMBROSEK_FREQS]
+    s1 = [ho(d, f, AMBROSEK_NPRIM)
+          for f, d in zip(AMBROSEK_FREQS, AMBROSEK_DISPS)]
+    prim, _, _, matJ = mod("util.helper_input").matJ_1D_exciton(
+        2, AMBROSEK_NPRIM, s0, s1, -0.04 / units.au_in_eV if coupled else 0.0)
+    basinfo = mod("model").BasInfo(prim)
+    ham = mod("operators.sop").PolynomialHamiltonian(basinfo.get_ndof(),
+                                                     basinfo.get_nstate())
+    ham.coupleJ = matJ
+    ham.set_HO_potential(basinfo)
+    model = mod("model").Model(basinfo, {"hamiltonian": ham}, bond_dim=bond)
+    model.init_weight_ESTATE = [1.0, 0.0]
+    if proj_gs:
+        model.primbas_gs = s0 * 2
+    if excited:
+        es, gs = [0.6, 0.8, 0.0, 0.0, 0.0], [1.0, 0.0, 0.0, 0.0, 0.0]
+        model.init_weight_VIBSTATE = [[es, gs, gs, gs], [gs, gs, gs, gs]]
+    return model
+
+
+def ambrosek_dipole(pkg: str, mu: float):
+    """The aggregate's transition dipole as a model's operator: ``mu``
+    between the two states (``coupleJ``, through the states' primitive
+    overlaps), nothing on the diagonal: two state pairs, (0, 1) and (1, 0),
+    not the Hamiltonian's four."""
+    import importlib
+
+    def mod(path):
+        return importlib.import_module(f"{pkg}.{path}")
+
+    basinfo = ambrosek_model(pkg, False, 4, False).basinfo
+    op = mod("operators.sop").PolynomialHamiltonian(basinfo.get_ndof(), 2)
+    op.coupleJ = [[0.0, mu], [mu, 0.0]]
+    return mod("model").Model(basinfo, {"hamiltonian": op}, bond_dim=4)
+
+
+def lh2_model(pkg: str):
+    """The 27-state LH2 exciton model, built by the package named ``pkg``:
+    ``PolynomialHamiltonian(27, 27)`` with ``matJ_LH2_exciton``'s
+    couplings and ``set_HO_potential``, D=LH2_BOND, the whole weight on
+    state 0."""
+    import importlib
+
+    def mod(path):
+        return importlib.import_module(f"{pkg}.{path}")
+
+    matJ, prim, _, _ = mod("util.helper_input").matJ_LH2_exciton(LH2_NPRIM)
+    basinfo = mod("model").BasInfo(prim)
+    ham = mod("operators.sop").PolynomialHamiltonian(basinfo.get_ndof(),
+                                                     basinfo.get_nstate())
+    ham.coupleJ = matJ
+    ham.set_HO_potential(basinfo)
+    model = mod("model").Model(basinfo, {"hamiltonian": ham},
+                               bond_dim=LH2_BOND)
+    model.init_weight_ESTATE = [1.0] + [0.0] * (basinfo.get_nstate() - 1)
+    return model
 
 
 class ModelBBuild:
@@ -3885,11 +4024,11 @@ def level_pops(wf, ops) -> list[float]:
 def phase_model_b(times, build) -> dict:
     """Donor–acceptor model B through ``Simulator.propagate`` at the
     example's settings (observables every 10 steps: each step host-driven,
-    as in the JAX package), 20 steps: the per-site route census of its
+    as in the JAX package), MODEL_B_STEPS steps: the per-site route census of its
     Krylov calls (einsum program, one block, cluster), the Lanczos
     launches of the run equal to the census's, ``krylov_ctl`` launched;
-    the 26 level populations at step 10 and after step 20 within
-    MODEL_B_POP_TOL of the gold, their sums within POP_SUM_TOL of 1; then
+    the 26 level populations after step 10 within MODEL_B_POP_TOL of the
+    gold, their sums within POP_SUM_TOL of 1; then
     each route on its own operands (the centre moved to the site): the
     Lanczos kernel against its plain version at a one-block and a cluster
     site, timed; the einsum program's control step (``krylov_ctl``)
@@ -3947,9 +4086,7 @@ def phase_model_b(times, build) -> dict:
                     f"says {per_step} a step")
             require(n_ctl > 0, f"{tag}: no krylov_ctl launch on the einsum "
                     "sites")
-            got = {str(MODEL_B_EVERY): np.loadtxt(
-                "model_b_prop/expectations.dat", ndmin=2)[1, 1:].tolist(),
-                str(MODEL_B_STEPS): level_pops(wf, ops)}
+            got = {str(MODEL_B_STEPS): level_pops(wf, ops)}
             for step, pops in got.items():
                 gap = float(np.max(np.abs(np.asarray(pops)
                                           - GOLD_MODEL_B[step])))
@@ -4144,6 +4281,382 @@ def phase_one_state_models(times, build) -> list:
     return paths
 
 
+def phase_ambrosek(times) -> dict:
+    """The Ambrosek aggregate's five cases (tests/test_relax_operate.py)
+    through the port's entry points on the card in complex64: imaginary
+    relaxation and propagation (the default stride 16: a host step, the
+    capture and replays), both again from ``proj_gs``'s projected start
+    under the coupled Hamiltonian, and improved relaxation to the ZPE
+    (``integrator.ground_state_multi`` over the pair sums).  Each energy
+    within its bar (AMBROSEK_BARS) of its literal; no Lanczos, fused-site
+    or ground-state kernel launch, one MGS launch a state a gauge move, no
+    plain call.  Then ``operate`` with the transition dipole
+    (:func:`ambrosek_dipole`, two state pairs) on the improved ground
+    state, held to the same on the CPU in complex128 (run after the
+    card's counted window: the CPU takes the plain versions)."""
+    from pytdscf_torch import Simulator
+    from pytdscf_torch.mps import cuda_krylov as CK
+
+    total: dict = {}
+    n_ctl = 0
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for case, (kind, coupled, bond, proj_gs, steps, dt, _) in (
+                    AMBROSEK.items()):
+                tag = f"ambrosek {case}"
+                model = ambrosek_model("pytdscf_torch", coupled, bond,
+                                       proj_gs, excited=kind == "improved")
+                sim = Simulator(f"amb_{case}", model, proj_gs=proj_gs,
+                                verbose=0)
+                if kind == "propagate":
+                    def run():
+                        return sim.propagate(maxstep=steps, stepsize=dt)
+                else:
+                    def run():
+                        return sim.relax(maxstep=steps, stepsize=dt,
+                                         improved=kind == "improved")
+                (energy, wf), wall, n, _ = timed_phase(tag, run)
+                ctl = CK.krylov_ctl.launches
+                engine = wf.engine
+                literal = ambrosek_literal(case)
+                gap = abs(energy - literal)
+                # sites 4, 2 states: one gauge move a state at each site
+                # but the last, each way, each step (the Simulator's first
+                # step of a block runs from the host, a replay of the rest)
+                moves = engine.nstate * (engine.nsite - 1) * 2 * steps
+                log(f"{tag}: ⟨H⟩ {energy!r}, literal {literal!r}, |Δ| "
+                    f"{gap:.3e} (bar {AMBROSEK_BARS[case]:.3e}); {wall:.3f} s "
+                    f"({engine.eager_steps} host, {engine.graph_steps} "
+                    f"replayed steps), populations {wf.pop_states()}; "
+                    f"launches mgs_qr {n['mgs_qr']}, krylov_ctl {ctl}")
+                require(gap <= AMBROSEK_BARS[case], f"{tag}: ⟨H⟩ {energy} vs "
+                        f"{literal} (bar {AMBROSEK_BARS[case]})")
+                require(engine.nstate == 2 and engine.pairset is not None,
+                        f"{tag}: {engine.nstate} states")
+                require(n["lanczos_expm"] == n["site_step"]
+                        == n["lanczos_gs"] == 0, f"{tag}: a one-state kernel "
+                        f"ran: {launch_text(n)}")
+                require(n["mgs_qr"] == moves, f"{tag}: {n['mgs_qr']} MGS "
+                        f"launches, {moves} gauge moves")
+                require(kind == "improved" or ctl > 0,
+                        f"{tag}: no krylov_ctl launch")
+                _add_counts(total, n)
+                n_ctl += ctl
+            # ---- operate: μ on the improved case's ground state
+            tag = "ambrosek operate"
+            model = ambrosek_dipole("pytdscf_torch", AMBROSEK_MU)
+
+            def operate(dev):
+                return Simulator("amb_improved", model, verbose=0,
+                                 device=dev).operate(restart=True,
+                                                     loadfile_ext="_gs")
+            (norm, wf), wall, n, _ = timed_phase(tag, lambda: operate("cuda"))
+            pops = wf.pop_states()
+            norm_p, wf_p = operate("cpu")
+            pops_p = wf_p.pop_states()
+            reset_counts()
+            gap = max(abs(norm - norm_p) / norm_p,
+                      *(abs(a - b) for a, b in zip(pops, pops_p)))
+            log(f"{tag}: ‖μ|Ψ⟩‖ {norm!r} (complex128 on the CPU {norm_p!r}), "
+                f"populations {pops} ({pops_p}), largest |Δ| {gap:.3e} (bar "
+                f"{AMBROSEK_OPERATE_TOL}); {wall:.3f} s, mgs_qr "
+                f"{n['mgs_qr']} launches")
+            require(gap <= AMBROSEK_OPERATE_TOL, f"{tag}: ‖μ|Ψ⟩‖ {norm} and "
+                    f"populations {pops} vs {norm_p}, {pops_p}")
+            require(n["mgs_qr"] > 0 and n["lanczos_expm"] == 0,
+                    f"{tag}: launches {launch_text(n)}")
+            _add_counts(total, n)
+        finally:
+            os.chdir(cwd)
+    out = workflow_path(total)
+    out["krylov_ctl"] = (n_ctl, None)
+    return out
+
+
+def multi_centred(engine, p: int):
+    """The operands of site p of a several-state engine with every
+    state's centre moved there (``qr_right`` over sites 0..p−1 of a copy of
+    the cores): ``((Ls, lLs), (Rs, lRs))`` per pair group, the groups'
+    MPO cores at the site, and the states' site tensors."""
+    import torch
+
+    from pytdscf_torch.mps import kernels as K
+    from pytdscf_torch.mps import pairs as P
+
+    cores = [[c.clone() for c in state] for state in engine.cores]
+    for state in cores:
+        for q in range(p):
+            a, sig = K.qr_right(state[q])
+            state[q] = a
+            state[q + 1] = K.absorb_right(sig, state[q + 1])
+    groups = engine.pairset.groups
+
+    def blocks(sites, forward):
+        b, lg = (list(x) for x in engine._trivial_multi())
+        for q in sites:
+            site = torch.stack([state[q] for state in cores])
+            for k, g in enumerate(groups):
+                b[k], lg[k] = P.normalize(
+                    P.transfer(g, b[k], site, g.W[q], forward), lg[k])
+        return b, lg
+
+    env = (blocks(range(p), True),
+           blocks(range(engine.nsite - 1, p, -1), False))
+    return env, [g.W[p] for g in groups], [state[p] for state in cores]
+
+
+def kernel_launches(run) -> int:
+    """The kernels the card ran for ``run()`` (host-driven: every launch
+    is the host's), as a profiler trace counts them between two marker
+    kernels (:func:`profile_run`'s bracket: a trace can lose the first
+    kernels of a session; one that lost a marker is taken again)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    for _ in range(TRACE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_SETTLE_S)
+            one = torch.zeros((), device="cuda")
+            for _ in range(TRACE_PRIME):
+                one.add_(1.0)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                kernels = [(float(e["ts"]), e.get("name", "")) for e in
+                           json.load(fh)["traceEvents"]
+                           if e.get("cat") == "kernel"]
+        marks = [ts for ts, name in kernels if MARKER + "(" in name]
+        if len(marks) == 2:
+            n = sum(marks[0] < ts < marks[1] for ts, _ in kernels)
+            require(n > 0, "kernel_launches: no kernel between the markers")
+            return n
+        log(f"kernel_launches: {len(marks)} marker kernels traced; again")
+    raise SmokeFailure(f"kernel_launches: {TRACE_ATTEMPTS} traces each lost "
+                       "a marker kernel")
+
+
+def phase_lh2(times) -> dict:
+    """The 27-state LH2 exciton model (189 state pairs, 27 × 27 sites)
+    through ``Simulator.propagate`` on the card in complex64, LH2_STEPS
+    steps of LH2_DT fs host-driven (``fetch_stride`` 1): every
+    ``populations.dat`` row and the final populations within LH2_POP_TOL
+    of scripts/a3_gold.py's gold, their sums within POP_SUM_TOL of 1, ⟨H⟩
+    after the last step within LH2_E_TOL (relative) of the gold's; no
+    Lanczos, fused-site or ground-state launch, 27 MGS launches a gauge
+    move, one ``krylov_ctl`` launch a Krylov iteration, no plain call.
+    Then at the bulk site (the centre moved there): launches of one H_eff
+    and one K_eff pair-sum matvec, ``krylov_ctl`` against its plain
+    version on the H step's own control steps, timed; MGS at the path's
+    gauge shapes, a live core and a state with no weight (every column a
+    dead-column completion), timed beside ``torch.linalg.qr``.  Then the
+    end state on a fresh engine: a host step and the capture, one
+    replayed step under the profiler against the same step host-driven
+    (Krylov statistics, launches, populations within REPLAY_POP_TOL) and
+    LH2_REPLAYS timed replays (s/step, busy share, peak memory)."""
+    import torch
+
+    from pytdscf_torch import Simulator
+    from pytdscf_torch.mps import cuda_krylov as CK
+    from pytdscf_torch.mps import pairs as P
+    from pytdscf_torch.mps.tdvp import TDVPEngine, _multi_expm
+
+    tag = "lh2"
+    t0 = time.perf_counter()
+    model = lh2_model("pytdscf_torch")
+    built = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, LH2_GOLD)) as fh:
+        gold = json.load(fh)
+    require(gold["steps"] >= LH2_STEPS and gold["dt_fs"] == LH2_DT
+            and gold["bond"] == LH2_BOND, f"{tag}: the gold's settings "
+            f"{gold['steps']} steps of {gold['dt_fs']} fs, D={gold['bond']}")
+    dt = fs(LH2_DT)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            sim = Simulator(tag, model, verbose=0)
+            (_, wf), wall, n, peak = timed_phase(
+                f"{tag}: propagate ({LH2_STEPS} steps of {LH2_DT} fs, "
+                "host-driven)", lambda: sim.propagate(
+                    maxstep=LH2_STEPS, stepsize=LH2_DT, fetch_stride=1))
+            n_ctl = CK.krylov_ctl.launches
+            engine = wf.engine
+            kry, calls, capped, _ = engine.krylov_stats(reset=False)
+            nst, nsite = engine.nstate, engine.nsite
+            groups = engine.pairset.groups
+            log(f"{tag}: {nst} states, {nsite} sites, {len(engine.pairs)} "
+                f"pairs in {len(groups)} groups (MPO widths "
+                f"{[int(g.W[1].shape[1]) for g in groups]}, "
+                f"{[len(g) for g in groups]} pairs), built in {built:.1f} s; "
+                f"host-driven {wall / LH2_STEPS:.4f} s/step "
+                f"({sim.diagnostics.report()}); peak {peak / 2**20:.1f} MiB; "
+                f"Krylov mean {kry:.3f} over {calls} calls ({capped} capped); "
+                f"launches {launch_text(n)}, krylov_ctl {n_ctl}")
+            require(engine.eager_steps == LH2_STEPS and engine.graph_steps == 0,
+                    f"{tag}: {engine.graph_steps} replayed steps at stride 1")
+            require(n["lanczos_expm"] == n["site_step"] == n["lanczos_gs"]
+                    == 0, f"{tag}: a one-state kernel ran: {launch_text(n)}")
+            moves = nst * (nsite - 1) * 2 * LH2_STEPS
+            require(n["mgs_qr"] == moves, f"{tag}: {n['mgs_qr']} MGS launches, "
+                    f"{moves} gauge moves")
+            require(n_ctl == round(kry * calls), f"{tag}: {n_ctl} krylov_ctl "
+                    f"launches, {round(kry * calls)} Krylov iterations")
+            rows = np.loadtxt(f"{tag}_prop/populations.dat", ndmin=2)[:, 1:]
+            pops = np.vstack([rows, [wf.pop_states()]])
+            want = np.asarray(gold["pops"][:LH2_STEPS + 1])
+            gaps = np.max(np.abs(pops - want), axis=1)
+            sums = np.abs(pops.sum(axis=1) - 1.0)
+            e_end = float(engine.expectation().real)
+            e_gold = gold["energies"][LH2_STEPS]
+            e_gap = abs(e_end - e_gold) / abs(e_gold)
+            log(f"{tag}: populations max |Δ| from gold {float(gaps.max()):.3e}"
+                f" (bar {LH2_POP_TOL}; by step "
+                f"{[float(f'{g:.2e}') for g in gaps]}); state 0 "
+                f"{pops[-1, 0]:.9f} (gold {want[-1, 0]:.9f}), max |Σ − 1| "
+                f"{float(sums.max()):.3e}; ⟨H⟩ {e_end!r} (gold {e_gold!r}, "
+                f"relative |Δ| {e_gap:.3e}, bar {LH2_E_TOL})")
+            require(float(gaps.max()) <= LH2_POP_TOL,
+                    f"{tag}: populations {float(gaps.max()):.3e} from gold")
+            require(float(sums.max()) <= POP_SUM_TOL,
+                    f"{tag}: populations sum to 1 ± {float(sums.max()):.3e}")
+            require(e_gap <= LH2_E_TOL, f"{tag}: ⟨H⟩ {e_end} vs gold {e_gold}")
+            # ---- the bulk site: launches a matvec, the kernels there
+            p = nsite // 2
+            ((Ls, lLs), (Rs, lRs)), W, psis = multi_centred(engine, p)
+            x = torch.stack(psis)
+            shape = tuple(x.shape[1:])
+            hfacs = [torch.exp(a + b) for a, b in zip(lLs, lRs)]
+            hmv = P.matvec(groups, Ls, W, Rs, hfacs, nst, shape)
+            kmv = P.matvec(groups, Ls, None, Ls, hfacs, nst, shape[::2])
+            v, s = x.reshape(-1), torch.randn(
+                nst * shape[0] * shape[2], dtype=x.dtype, device=x.device)
+            per_h = kernel_launches(lambda: hmv(v))
+            per_k = kernel_launches(lambda: kmv(s))
+            h_ms = cuda_ms(lambda: hmv(v), 20)
+            log(f"{tag}: one pair-sum matvec at site {p} ({nst}, {shape}) "
+                f"launches {per_h} kernels (H_eff; {h_ms:.4f} ms) and {per_k} "
+                f"(K_eff), host-driven, for {len(engine.pairs)} pairs")
+            cfg = engine.config
+            recs = record_ctl(lambda: _multi_expm(
+                v, shape, -0.5j * dt, hfacs, cfg, groups, Ls, Rs, W))
+            ctl = {}
+            err_ctl = check_krylov_ctl(recs, ctl, f"{tag} site {p}",
+                                       gap_edge=True)
+            times["a3_krylov_ctl"] = {**ctl["krylov_ctl"], "site": p,
+                                      "launches_per_matvec": {"H": per_h,
+                                                              "K": per_k}}
+            err_q = 0.0
+            cases = []
+            M, r = shape[0] * shape[1], shape[2]
+            for name, m in (
+                    (f"bulk, state 0, site {p}", psis[0].reshape(M, r)),
+                    (f"bulk, state {nst - 1}, site {p}",
+                     psis[-1].reshape(M, r)),
+                    ("bulk, a state with no weight",
+                     torch.zeros((M, r), dtype=x.dtype, device=x.device)),
+                    ("edge, state 0, site 0",
+                     engine.cores[0][0].reshape(-1, r))):
+                err, _, case = check_mgs(f"{tag} {name}", m.contiguous(),
+                                         timed=True)
+                err_q = max(err_q, err)
+                cases.append({**case, "case": name})
+            times["a3_mgs"] = cases
+            shapes = mgs_launch_shapes(lambda: engine.propagate(dt))
+            times["mgs_step_shapes"][tag] = shape_counts(shapes)
+            require(len(shapes) == nst * (nsite - 1) * 2,
+                    f"{tag}: {len(shapes)} MGS launches a step")
+            log(f"{tag}: MGS launches of one host-driven step by shape "
+                f"{times['mgs_step_shapes'][tag]}")
+            # ---- replayed against host-driven
+            g = TDVPEngine(engine.to_numpy(), model.hamiltonian, cfg, "cuda")
+            require(g.capturable(), f"{tag}: a step is not capturable")
+            t0 = time.perf_counter()
+            g.propagate_steps(dt, 1)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            (prog,) = g._programs.values()
+            restore = program_snapshot(g)
+            _, busy, n_g = traced_run(
+                f"{tag}: one replayed step",
+                lambda: (restore(), g.propagate_steps(dt, 1)))
+            stats_g, ctl_g = g.krylov_stats(), CK.krylov_ctl.launches
+            pops_g = g.pop_states()
+            restore()
+            t0 = time.perf_counter()
+            g.propagate(dt)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            stats_h, ctl_h = g.krylov_stats(), CK.krylov_ctl.launches
+            n_h = counted_launches()
+            pops_h = g.pop_states()
+            gap = max(abs(a - b) for a, b in zip(pops_g, pops_h))
+            log(f"{tag}: one step replayed, Krylov {stats_g}, launches as "
+                f"traced {launch_text(n_g)}, krylov_ctl {ctl_g} on the "
+                f"device; host-driven ({host_s:.4f} s), Krylov {stats_h}, "
+                f"launches {launch_text(n_h)}, krylov_ctl {ctl_h}; "
+                f"populations max |Δ| {gap:.3e}; the replay keeps the device "
+                f"{100 * busy:.1f} % busy")
+            require(stats_g == stats_h, f"{tag}: replayed Krylov statistics "
+                    f"{stats_g} != host-driven {stats_h}")
+            require(n_g == n_h and ctl_g == ctl_h, f"{tag}: replayed "
+                    f"launches {launch_text(n_g)}, krylov_ctl {ctl_g} != "
+                    f"host-driven {launch_text(n_h)}, krylov_ctl {ctl_h}")
+            require(gap <= REPLAY_POP_TOL, f"{tag}: replayed populations "
+                    f"{gap:.3e} from the host-driven step's")
+            restore()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            g.propagate_steps(dt, LH2_REPLAYS)
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / LH2_REPLAYS
+            n_r = rp_launches()
+            require(plain_calls() == 0, f"{tag}: {plain_calls()} plain calls "
+                    "in the replays")
+            require(abs(sum(g.pop_states()) - 1.0) <= POP_SUM_TOL,
+                    f"{tag}: replayed populations sum to {sum(g.pop_states())}")
+            replay_peak = torch.cuda.max_memory_allocated() - base
+            log(f"{tag}: host step and capture {first_s:.3f} s (capture "
+                f"{prog.capture_s:.3f} s); {LH2_REPLAYS} replays "
+                f"{step_s:.4f} s/step, launches {n_r}, peak "
+                f"{replay_peak / 2**20:.1f} MiB above the "
+                f"{base / 2**20:.1f} MiB allocated before")
+            times["a3_runs"] = {
+                "host_s_per_step": wall / LH2_STEPS, "host_step_s": host_s,
+                "replay_s_per_step": step_s, "capture_s": prog.capture_s,
+                "busy_replayed": busy, "peak_mib": peak / 2**20,
+                "replay_peak_mib": replay_peak / 2**20,
+                "launches_per_matvec": {"H": per_h, "K": per_k},
+                "pops_gap": float(gaps.max()), "e_gap": e_gap}
+        finally:
+            os.chdir(cwd)
+    del g, engine, wf
+    torch.cuda.empty_cache()
+    return {**workflow_path(n), "mgs_qr": (n["mgs_qr"], err_q),
+            "krylov_ctl": (n_ctl, err_ctl)}
+
+
+def phase_multistate(times) -> list:
+    """Phase 19: several electronic states (the Ambrosek aggregate, the
+    27-state LH2 model)."""
+    return [phase_ambrosek(times), phase_lh2(times)]
+
+
 KERNELS = [
     ("lanczos_expm", "pytdscf_torch/csrc/lanczos_expm.cu",
      "pytdscf_tpu/mps/pallas_lanczos.py:296"),
@@ -4231,6 +4744,8 @@ def run_phases(build) -> int:
     paths += clock("relax and operate", phase_relax_operate(times))
     paths += clock("one-state models", phase_one_state_models(times, build))
     log("one-state models: " + json.dumps(times["a4_runs"]))
+    paths += clock("several states", phase_multistate(times))
+    log("several states: " + json.dumps(times["a3_runs"]))
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -4273,8 +4788,10 @@ def run_phases(build) -> int:
     kernels[0]["model_cases"] = times["a4_lanczos"]
     kernels[0]["model_b_route_ms"] = times["a4_model_b_routes"]
     times["mgs_qr"]["cases"].append(times["a4_mgs"])
+    times["mgs_qr"]["cases"] += times["a3_mgs"]
     ctl = kernels[[k["name"] for k in kernels].index("krylov_ctl")]
     ctl["model_b"] = times["a4_krylov_ctl"]
+    ctl["lh2"] = times["a3_krylov_ctl"]
     for key in ("floor_ms", "k_used", "path"):
         ctl[key] = times["krylov_ctl"][key]
     # the MGS cases: each timed shape with its launches a step at that

@@ -13,9 +13,9 @@ HO-FBR integrals (``pytdscf/basis/_primints_cls.py``):
   every cross-basis operator matrix is then  ovlp @ (ladder algebra in the
   ket basis).
 
-The JAX package's native C++ version of the two kernels and its
-primitive-integral tables (``basis/primints.py``) serve the ground-state
-projection only and are not copied (ROADMAP A3).
+The JAX package's native C++ version of the two kernels, an optional
+accelerator that falls back to this module, is not copied; the
+primitive-integral tables built from it are ``basis/primints.py``.
 ``tests/test_torch_host_model.py`` holds this copy to the original.
 
 Supported op keys: ``ovlp``/``1``, ``q^n``, ``d^1``, ``d^2``, and for

@@ -8,7 +8,8 @@ one device program; here one whole step (both half-sweeps, and with
 instead of the host's launch of each of its kernels and torch operations.
 
 The carry, the state one step maps onto the next, lives in fixed buffers:
-the cores, the right environment stack (blocks and log-scales), the
+the cores of every electronic state, the right environment stack (blocks
+and log-scales, one of each a pair group with several states), the
 device-side Krylov and ground-state telemetry and, in ``pytest_enabled``
 runs, the gauge deviation.  A recorded step reads the buffers and ends by copying its new
 carry into them (:func:`copy_all`), since a replay writes to
@@ -169,14 +170,24 @@ def copy_all(dst: list, src: list) -> None:
         torch._foreach_copy_(d, t)
 
 
+def _env_parts(entry) -> tuple[list, list]:
+    """An environment-stack entry's blocks and log-scales as lists: one of
+    each for one electronic state, one a pair group for several."""
+    blocks, logs = entry
+    if isinstance(blocks, torch.Tensor):
+        return [blocks], [logs]
+    return list(blocks), list(logs)
+
+
 def _carry(engine) -> list:
-    """The engine's step carry as a flat list: cores, environment blocks,
-    their log-scales, the Krylov and ground-state telemetry and, in
-    ``pytest_enabled``
-    runs, the gauge deviation (None where the engine holds none yet)."""
-    out = [*engine.cores[0]]
-    out += [block for block, _ in engine.env_stack]
-    out += [log for _, log in engine.env_stack]
+    """The engine's step carry as a flat list: cores (state by state),
+    environment blocks, their log-scales, the Krylov and ground-state
+    telemetry and, in ``pytest_enabled`` runs, the gauge deviation (None
+    where the engine holds none yet)."""
+    out = [c for state in engine.cores for c in state]
+    parts = [_env_parts(entry) for entry in engine.env_stack]
+    out += [b for blocks, _ in parts for b in blocks]
+    out += [lg for _, logs in parts for lg in logs]
     out.append(engine._kry_sum)
     out.append(engine._gs_tally)
     if engine.config.pytest_enabled:
@@ -230,14 +241,24 @@ class StepProgram:
 
     def install(self, engine) -> None:
         """Make the buffers the engine's state."""
-        n = engine.nsite
+        n, ns = engine.nsite, engine.nstate
         b = self.buffers
-        engine.cores = [list(b[:n])]
-        engine.env_stack = list(zip(b[n:2 * n], b[2 * n:3 * n]))
+        engine.cores = [list(b[s * n:(s + 1) * n]) for s in range(ns)]
+        k = ns * n
+        if engine.pairset is None:
+            engine.env_stack = list(zip(b[k:k + n], b[k + n:k + 2 * n]))
+            k += 2 * n
+        else:
+            g = len(engine.pairset.groups)
+            blocks, logs = b[k:k + g * n], b[k + g * n:k + 2 * g * n]
+            engine.env_stack = [
+                (tuple(blocks[e * g:(e + 1) * g]),
+                 tuple(logs[e * g:(e + 1) * g])) for e in range(n)]
+            k += 2 * g * n
         engine._env_side = "right"
-        engine._kry_sum = b[3 * n]
-        engine._gs_tally = b[3 * n + 1]
-        engine._gauge_dev = b[3 * n + 2] if engine.config.pytest_enabled \
+        engine._kry_sum = b[k]
+        engine._gs_tally = b[k + 1]
+        engine._gauge_dev = b[k + 2] if engine.config.pytest_enabled \
             else None
 
     def _body(self, engine) -> None:

@@ -70,6 +70,7 @@ from pytdscf_torch.mps import cuda_renorm as CR
 from pytdscf_torch.mps import cuda_site as CS
 from pytdscf_torch.mps import kernels as K
 from pytdscf_torch.mps import cuda_lanczos as CL
+from pytdscf_torch.mps import pairs as P
 from pytdscf_torch.mps import step_graph
 from pytdscf_torch.mps.integrator import (
     GS_MAX_RESTARTS,
@@ -112,25 +113,37 @@ def _unstack(rows: torch.Tensor, layout) -> list[torch.Tensor]:
     return out
 
 
-def _takes_fused_site(cfg, psi_shape, W_shape, nxt_shape) -> bool:
+def _takes_fused_site(cfg, psi_shape, W_shape, nxt_shape,
+                      nstate: int = 1) -> bool:
     """Whether a non-last site update runs as one call of the fused site
     kernel (``cuda_site.site_step_fused``)."""
     return (
         cfg.fused_site
-        and _takes_lanczos_kernel(cfg)
+        and _takes_lanczos_kernel(cfg, nstate)
         and cfg.env_precision == "highest"
         and CS.site_fits(psi_shape, W_shape, nxt_shape, cfg.max_krylov)
     )
 
 
-def _takes_lanczos_kernel(cfg) -> bool:
+def _takes_lanczos_kernel(cfg, nstate: int = 1) -> bool:
     """Whether Lanczos sites may run the Lanczos kernel (where its channels
-    fit): exact "highest" matvecs, no relaxed Krylov and no improved
-    relaxation (which runs no exponential), the JAX package's ``use_plz``
-    rule; otherwise ``integrator.krylov_expm`` runs."""
-    return (cfg.integrator == "lanczos" and not cfg.krylov_relaxed
+    fit): one electronic state, exact "highest" matvecs, no relaxed Krylov
+    and no improved relaxation (which runs no exponential), the JAX
+    package's ``use_plz`` rule; otherwise ``integrator.krylov_expm``
+    runs."""
+    return (nstate == 1 and cfg.integrator == "lanczos"
+            and not cfg.krylov_relaxed
             and cfg.matvec_precision == "highest"
             and cfg.relax != "improved")
+
+
+def _takes_gs_kernel(shape, width: int, nstate: int = 1) -> bool:
+    """Whether an improved-relaxation site of ``shape`` (M, r) under an
+    MPO of ``width`` channels runs the ground-state kernel
+    (``cuda_lanczos.ground_state``): one electronic state where
+    ``gs_fits`` takes it; otherwise ``integrator.ground_state_multi``
+    over the einsum matvec."""
+    return nstate == 1 and CL.gs_fits(shape, width)
 
 
 def _conserve(cfg) -> bool:
@@ -285,7 +298,7 @@ def _improved_site_step(psi, nxt, L, W, R, lL, lR, *, cfg, forward, last):
     status."""
     l, d, r = psi.shape
     hfac = torch.exp(lL + lR)
-    if CL.gs_fits((l * d, r), W.shape[-1]):
+    if _takes_gs_kernel((l * d, r), W.shape[-1]):
         ch = CL.heff_channels(L, W, R, hfac)
         out, gs = CL.ground_state(ch, psi.reshape(l * d, r).contiguous())
     else:
@@ -303,6 +316,100 @@ def _improved_site_step(psi, nxt, L, W, R, lL, lR, *, cfg, forward, last):
     return site_out, psi_next, (block, log_new), stats, [], gs
 
 
+def _multi_expm(vec, shape, scale, facs, cfg, groups, Ls, Rs, Ws=None):
+    """:func:`_einsum_expm` over several electronic states: exp(scale·H)
+    on the stacked vector ``vec`` (sites of ``shape``) for the pair sums of
+    H_eff (``Ws`` given) or K_eff (``pairs.matvec``: the batched einsums
+    at "highest", the bf16x3 kernel at "high", the one-pass kernels at
+    "default" and for the relaxed iterations)."""
+    nstate = vec.numel() // math.prod(shape)
+    prec = cfg.matvec_precision
+    lo = None
+    if cfg.krylov_relaxed or prec == "default":
+        lo = P.matvec(groups, Ls, Ws, Rs, facs, nstate, shape, "lo")
+    mv = lo if prec == "default" else P.matvec(
+        groups, Ls, Ws, Rs, facs, nstate, shape, prec)
+    out, status = krylov_expm(
+        mv, vec, scale, cfg.thresh_exp, cfg.max_krylov, _conserve(cfg),
+        arnoldi=cfg.integrator == "arnoldi", return_status=True,
+        matvec_lo=lo if cfg.krylov_relaxed else None,
+        relax_after=cfg.relax_after,
+    )
+    return out, status[:2], status[2]
+
+
+def _multi_site_step(psis, nxts, env, W, scale, *, cfg, groups, forward,
+                     last):
+    """One site update of several electronic states (the JAX package's
+    ``_site_step_impl`` with ``nstate > 1``): the states' cores ``psis``
+    stack into one Krylov vector (``kernels.stack_states``'s order), on
+    which H_eff sums its pair terms (:func:`_multi_expm`; in improved
+    relaxation ``integrator.ground_state_multi``, since the Lanczos and
+    ground-state kernels take one state); each state's core moves its
+    gauge on its own (``kernels.qr_right``/``lq_left``: the MGS kernel on
+    the card); each pair's block is renormalised with the bra and ket
+    states' new cores; K_eff runs on the stacked bond matrices (skipped in
+    improved relaxation, which absorbs them as they are); each state
+    absorbs its own.  The norm is kept on the stacked vector, never state
+    by state.
+
+    ``env``: ``((Ls, lLs), (Rs, lRs))``, the blocks and log-scales left and
+    right of the site, a tensor of each group's pairs; ``W``: the groups'
+    stacked MPO cores at the site.  Returns ``(sites_out, psi_next, (blocks,
+    logs), stats, relaxed, gs)`` with lists over states and tuples over
+    groups; ``gs`` the ground-state status of improved relaxation, else
+    None."""
+    nstate = len(psis)
+    (Ls, lLs), (Rs, lRs) = env
+    x = torch.stack(psis)
+    shape = x.shape[1:]
+    hfacs = [torch.exp(a + b) for a, b in zip(lLs, lRs)]
+    relaxed, gs = [], None
+    if cfg.relax == "improved":
+        mv = P.matvec(groups, Ls, W, Rs, hfacs, nstate, shape)
+        out, gs = ground_state_multi(mv, x.reshape(-1))
+        stats = [torch.stack([gs[1], torch.zeros_like(gs[1])])]
+    else:
+        out, st_h, n = _multi_expm(x.reshape(-1), shape, scale, hfacs, cfg,
+                                   groups, Ls, Rs, W)
+        stats = [st_h]
+        relaxed.append(n)
+    new = out.view(nstate, *shape)
+    if last:
+        return list(new.unbind(0)), None, None, stats, relaxed, gs
+    if forward:
+        moved = [K.qr_right(c) for c in new.unbind(0)]
+        sites = [a for a, _ in moved]
+        sigs = [m for _, m in moved]
+        sys_blocks, sys_logs, env_blocks, l_env = Ls, lLs, Rs, lRs
+    else:
+        moved = [K.lq_left(c) for c in new.unbind(0)]
+        sites = [b for _, b in moved]
+        sigs = [m for m, _ in moved]
+        sys_blocks, sys_logs, env_blocks, l_env = Rs, lRs, Ls, lLs
+    site = torch.stack(sites)
+    normed = [P.normalize(P.transfer(g, B, site, w, forward,
+                                     cfg.env_precision), lg)
+              for g, B, lg, w in zip(groups, sys_blocks, sys_logs, W)]
+    blocks = tuple(b for b, _ in normed)
+    logs = tuple(lg for _, lg in normed)
+    sig = torch.stack(sigs)
+    if cfg.relax != "improved":
+        kfacs = [torch.exp(a + b) for a, b in zip(logs, l_env)]
+        kLs, kRs = (blocks, env_blocks) if forward else (env_blocks, blocks)
+        out, st_k, n = _multi_expm(sig.reshape(-1), sig.shape[1:], -scale,
+                                   kfacs, cfg, groups, kLs, kRs)
+        stats.append(st_k)
+        relaxed.append(n)
+        sig = out.view(sig.shape)
+    nxt = torch.stack(nxts)
+    if forward:
+        psi_next = torch.einsum("zkr,zrns->zkns", sig, nxt)
+    else:
+        psi_next = torch.einsum("zlns,zsk->zlnk", nxt, sig)
+    return sites, list(psi_next.unbind(0)), (blocks, logs), stats, relaxed, gs
+
+
 class TDVPEngine:
     """Holds the MPS cores, fused MPO and cached environments; sweeps.
 
@@ -311,6 +418,15 @@ class TDVPEngine:
     ``fused_mpo(phys_dims)`` (a ``TensorHamiltonian``, or
     ``convert.FusedMPO``); ``device``: where the tensors live, the card
     unless the caller asks for the CPU (without a card this raises).
+
+    With several electronic states (``len(cores) > 1``) the engine holds
+    one MPS per state, sharing their core shapes, and one fused MPO per
+    state pair ``(i, j)`` that couples (``pairs``, ``W_pairs``), grouped
+    for batched sums (``pairset``: ``pairs.PairSet``).  Each entry of an
+    environment stack then holds a tuple of blocks and a tuple of
+    log-scales, one tensor per group with a leading pair axis.  Every site
+    takes the Krylov program over the einsums (the Lanczos, fused-site and
+    ground-state kernels take one state, as in the JAX package).
     """
 
     def __init__(self, cores, hamiltonian, config: Config, device="cuda"):
@@ -318,11 +434,6 @@ class TDVPEngine:
             raise NotImplementedError(
                 f"splitting={config.splitting!r}: 4th-order compositions "
                 "are not ported yet (ROADMAP A10)"
-            )
-        if len(cores) != 1:
-            raise NotImplementedError(
-                f"nstate={len(cores)}: multi-state sweeps are not ported "
-                "yet (ROADMAP A3)"
             )
         self.config = config
         self.device = torch.device(device)
@@ -334,13 +445,32 @@ class TDVPEngine:
         self.dtype = _DTYPES[config.dtype]
         if self.device.type == "cuda" and self.dtype != torch.complex64:
             raise ValueError("the CUDA kernels take complex64: set dtype")
-        self.nstate = 1
+        self.nstate = len(cores)
         self.nsite = len(cores[0])
         self.cores = [[self._put(c) for c in state] for state in cores]
         self.phys_dims = [int(c.shape[1]) for c in cores[0]]
+        if any(tuple(a.shape) != tuple(b.shape)
+               for state in cores[1:] for a, b in zip(state, cores[0])):
+            raise ValueError("the electronic states' MPS must share their "
+                             "core shapes")
         self.hamiltonian = hamiltonian
-        #: fused MPO cores W[p] (a, i, j, b) of the single state pair
-        self.W = self._fused_cores(hamiltonian)
+        fused = hamiltonian.fused_mpo(self.phys_dims)
+        if len(fused) != self.nstate:
+            raise ValueError(
+                f"an operator of {len(fused)} states on {self.nstate}")
+        #: the state pairs (i, j) of the Hamiltonian, and (several states)
+        #: their groups for batched sums
+        self.pairs = P.state_pairs(fused, self.nstate)
+        self.pairset = None
+        if self.nstate == 1:
+            #: fused MPO cores W[p] (a, i, j, b) of the single state pair
+            self.W = self._fused_cores(hamiltonian)
+        else:
+            self.pairset = self._pair_set(fused)
+            self.W = None
+        #: each pair's fused MPO cores, keyed by pair
+        self.W_pairs = ({(0, 0): self.W} if self.pairset is None
+                        else self.pairset.W)
         #: fused MPOs of other operators (``expectation``), by id, with the
         #: operator kept alive beside them
         self._op_W: dict[int, tuple] = {}
@@ -380,14 +510,41 @@ class TDVPEngine:
     def _put(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device, self.dtype)
 
-    def _fused_cores(self, operator) -> list[torch.Tensor]:
-        """The single-pair fused MPO of ``operator`` on this device."""
+    def _fused_cores(self, operator):
+        """The fused MPO of ``operator`` on this device: the single pair's
+        cores (one state), or its :class:`pairs.PairSet` (several)."""
         fused = operator.fused_mpo(self.phys_dims)
+        if self.nstate > 1:
+            return self._pair_set(fused)
         if len(fused) != 1 or fused[0][0] is None:
-            raise NotImplementedError(
-                "multi-state operators are not ported yet (ROADMAP A3)"
+            raise ValueError(
+                "a one-state engine takes an operator of one state"
             )
         return [self._put(c) for c in fused[0][0]]
+
+    def _pair_set(self, fused) -> P.PairSet:
+        if len(fused) != self.nstate:
+            raise ValueError(
+                f"an operator of {len(fused)} states on {self.nstate}")
+        return P.PairSet(fused, self.nstate, self._put, self.device,
+                         self.dtype)
+
+    def _trivial_multi(self, ps: P.PairSet | None = None,
+                       dtype=None) -> tuple:
+        """The trivial environment entry of the pair groups of ``ps`` (the
+        Hamiltonian's by default): ``(blocks, logs)``, each a tuple over
+        groups."""
+        ps = ps or self.pairset
+        dtype = dtype or self.dtype
+        real = torch.float64 if dtype == torch.complex128 else torch.float32
+        return (tuple(torch.ones((len(g), 1, 1, 1), dtype=dtype,
+                                 device=self.device) for g in ps.groups),
+                tuple(torch.zeros(len(g), dtype=real, device=self.device)
+                      for g in ps.groups))
+
+    def _site(self, p: int) -> torch.Tensor:
+        """Site p of every state, stacked (nstate, l, d, r)."""
+        return torch.stack([state[p] for state in self.cores])
 
     def _trivial(self):
         real = torch.float64 if self.dtype == torch.complex128 else torch.float32
@@ -424,7 +581,10 @@ class TDVPEngine:
     def build_right_env_stack(self) -> list:
         """[trivial, R(N−1..), …, R(1..)] — pop order matches a → sweep.
 
-        Entries are (normalised block, log-scale)."""
+        Entries are (normalised block, log-scale); with several states
+        (blocks, logs), tuples over the pair groups."""
+        if self.pairset is not None:
+            return self._env_stack_multi(forward=False)
         stack = [self._trivial()]
         for p in range(self.nsite - 1, 0, -1):
             c = self.cores[0][p]
@@ -435,12 +595,31 @@ class TDVPEngine:
 
     def build_left_env_stack(self) -> list:
         """[trivial, L(..0), …, L(..N−2)] — pop order matches a ← sweep."""
+        if self.pairset is not None:
+            return self._env_stack_multi(forward=True)
         stack = [self._trivial()]
         for p in range(self.nsite - 1):
             c = self.cores[0][p]
             B, lg = stack[-1]
             Bn, dl = _normalize_block(K.renorm_block_left(B, c, self.W[p], c))
             stack.append((Bn, lg + dl))
+        return stack
+
+    def _env_stack_multi(self, forward: bool) -> list:
+        """The environment stack of several states: each pair group's
+        blocks transferred through the sites (left to right with
+        ``forward``) at "highest" precision, at unit norm per pair."""
+        groups = self.pairset.groups
+        stack = [self._trivial_multi()]
+        rng = range(self.nsite - 1) if forward else range(
+            self.nsite - 1, 0, -1)
+        for p in rng:
+            site = self._site(p)
+            blocks, logs = stack[-1]
+            new = [P.normalize(P.transfer(g, B, site, g.W[p], forward), lg)
+                   for g, B, lg in zip(groups, blocks, logs)]
+            stack.append((tuple(b for b, _ in new),
+                          tuple(lg for _, lg in new)))
         return stack
 
     # ------------------------------------------------------------ sweeps
@@ -452,6 +631,9 @@ class TDVPEngine:
                 if forward
                 else self.build_left_env_stack()
             )
+        if self.pairset is not None:
+            self._telemetry(*self._sweep_multi(scale, forward))
+            return
         env_stack = self.env_stack
         sys_block, sys_log = self._trivial()
         sys_stack = [(sys_block, sys_log)]
@@ -491,6 +673,58 @@ class TDVPEngine:
             sys_stack.append(new)
         self.env_stack = sys_stack
         self._env_side = "left" if forward else "right"
+        self._telemetry(stats, relaxed, gs)
+
+    def _sweep_multi(self, scale: complex, forward: bool) -> tuple:
+        """The site loop of a half-sweep over several states
+        (:func:`_multi_site_step` at each site): the stack it builds
+        becomes the environment stack.  Returns the Krylov status, relaxed
+        counts and ground-state status of its sites."""
+        cfg = self.config
+        env_stack = self.env_stack
+        sys_blocks, sys_logs = self._trivial_multi()
+        sys_stack = [(sys_blocks, sys_logs)]
+        groups = self.pairset.groups
+        order = range(self.nsite) if forward else range(self.nsite - 1, -1, -1)
+        stats, relaxed, gs = [], [], []
+        for pos, p in enumerate(order):
+            last = pos == self.nsite - 1
+            env_blocks, env_logs = env_stack.pop()
+            q = p + 1 if forward else p - 1
+            left = (sys_blocks, sys_logs) if forward else (env_blocks, env_logs)
+            right = (env_blocks, env_logs) if forward else (sys_blocks, sys_logs)
+            sites, nxt, new, st, rel, g = _multi_site_step(
+                [state[p] for state in self.cores],
+                None if last else [state[q] for state in self.cores],
+                (left, right), [grp.W[p] for grp in groups], scale,
+                cfg=cfg, groups=groups, forward=forward, last=last,
+            )
+            stats += st
+            relaxed += rel
+            if g is not None:
+                gs.append(g)
+            for state, site in zip(self.cores, sites):
+                state[p] = site
+            if last:
+                break
+            if cfg.pytest_enabled:
+                for site in sites:
+                    dev = K.gauge_error(site, left=forward)
+                    self._gauge_dev = (
+                        dev if self._gauge_dev is None
+                        else torch.maximum(self._gauge_dev, dev)
+                    )
+            for state, core in zip(self.cores, nxt):
+                state[q] = core
+            sys_blocks, sys_logs = new
+            sys_stack.append(new)
+        self.env_stack = sys_stack
+        self._env_side = "left" if forward else "right"
+        return stats, relaxed, gs
+
+    def _telemetry(self, stats, relaxed, gs) -> None:
+        """Add a half-sweep's Krylov and ground-state status to the
+        device-side telemetry."""
         rel = (torch.stack(relaxed).sum().reshape(1) if relaxed
                else torch.zeros(1, dtype=torch.int32, device=self.device))
         acc = torch.cat([torch.stack(stats).sum(0), rel.to(torch.int32)])
@@ -544,14 +778,16 @@ class TDVPEngine:
         ``max_krylov`` up to ``cuda_krylov.MAX_KRYLOV``; beyond, a block runs
         step by step.  Imaginary time runs the same routes.  Improved
         relaxation is captured only where every site takes the ground-state
-        kernel (``cuda_lanczos.gs_fits``): the einsum route reads one flag
-        a restart.  The answer does not depend on the device: on the CPU
-        it selects the same buffer program, run uncaptured."""
+        kernel (:func:`_takes_gs_kernel`; never with several states): the
+        einsum route reads one flag a restart.  The answer does not depend
+        on the device: on the CPU it selects the same buffer program, run
+        uncaptured."""
         if self.config.relax == "improved":
             return all(
-                CL.gs_fits((c.shape[0] * c.shape[1], c.shape[2]),
-                           w.shape[-1])
-                for c, w in zip(self.cores[0], self.W))
+                _takes_gs_kernel((c.shape[0] * c.shape[1], c.shape[2]),
+                                 w[p].shape[-1], self.nstate)
+                for p, c in enumerate(self.cores[0])
+                for w in self.W_pairs.values())
         return self.config.max_krylov <= CK.MAX_KRYLOV
 
     def _ensure_right_stack(self) -> None:
@@ -672,11 +908,12 @@ class TDVPEngine:
         """Real dtype of packed host fetches (:func:`fetch_many`)."""
         return torch.float32 if self.dtype == torch.complex64 else torch.float64
 
-    def _mpo(self, operator) -> list[torch.Tensor]:
-        """The fused MPO cores of ``operator`` on this device: the engine's
-        own for its Hamiltonian (``None``), else built once and cached."""
+    def _mpo(self, operator):
+        """The fused MPO of ``operator`` on this device (:meth:`_fused_cores`):
+        the engine's own for its Hamiltonian (``None``), else built once and
+        cached."""
         if operator is None or operator is self.hamiltonian:
-            return self.W
+            return self.W if self.pairset is None else self.pairset
         if id(operator) not in self._op_W:
             self._op_W[id(operator)] = (operator, self._fused_cores(operator))
         return self._op_W[id(operator)][1]
@@ -700,10 +937,18 @@ class TDVPEngine:
         recontracted in complex128, then H_eff at site 0 in complex128, with
         the value rounded to the working precision.  The
         sweep's own complex64 blocks are not reused: their top block is
-        where a complex64 run loses ⟨H⟩ (ROADMAP C3)."""
+        where a complex64 run loses ⟨H⟩ (ROADMAP C3).
+
+        With several states the plan is the JAX package's: ⟨H⟩ as each
+        pair's (value, log-scale), the autocorrelation and the populations
+        one item a state."""
         liouville = self.config.space == "liouville"
         items: list = []
         plan: list = []
+        if self.pairset is not None:
+            return self._submit_multi(operator, autocorr, energy,
+                                      norm and liouville,
+                                      populations or (norm and not liouville))
         triv, _ = self._trivial()
         if energy:
             items += self._energy(self._mpo(operator))
@@ -725,6 +970,40 @@ class TDVPEngine:
             items.append(S)
             plan.append(("trace", 1))
         return items, plan
+
+    def _submit_multi(self, operator, autocorr: bool, energy: bool,
+                      trace: bool, pops: bool) -> tuple[list, list]:
+        """:meth:`properties_submit` with several states."""
+        items: list = []
+        plan: list = []
+        if energy:
+            part = self._energy(self._mpo(operator))
+            items += part
+            plan.append(("energy", len(part) // 2))
+        if autocorr:
+            S = torch.ones((self.nstate, 1, 1), dtype=self.dtype,
+                           device=self.device)
+            for p in range(self.nsite):
+                c = self._site(p)
+                S = torch.einsum("zkno,zknp->zop",
+                                 torch.einsum("zbk,zbno->zkno", S, c), c)
+            items += list(S.unbind(0))
+            plan.append(("autocorr", self.nstate))
+        if pops:
+            items += list(self._norms2().unbind(0))
+            plan.append(("pops", self.nstate))
+        if trace:
+            S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
+            for p in range(self.nsite):
+                S = torch.einsum("lk,lnr,n->rk", S, self.cores[0][p],
+                                 self._vec_eye(p))
+            items.append(S)
+            plan.append(("trace", 1))
+        return items, plan
+
+    def _norms2(self) -> torch.Tensor:
+        """Each state's norm², from its centre core (site 0)."""
+        return torch.sum(torch.abs(self._site(0)) ** 2, dim=(1, 2, 3))
 
     def properties_resolve(
         self,
@@ -797,9 +1076,15 @@ class TDVPEngine:
     def expectation(self, operator=None) -> complex:
         """⟨Ψ|O|Ψ⟩ with Psi canonical at site 0: O is the engine's
         Hamiltonian (``None``) or any operator with ``fused_mpo`` (an
-        observable), whose fused MPO is built once and cached."""
-        value, log = self._energy(self._mpo(operator))
-        return complex(value * torch.exp(log))
+        observable), whose fused MPO is built once and cached.  With
+        several states the sum over the operator's state pairs."""
+        items = self._energy(self._mpo(operator))
+        if self.pairset is None:
+            value, log = items
+            return complex(value * torch.exp(log))
+        vals = fetch_many(items, self.fetch_real_dtype())
+        return sum(complex(v) * math.exp(float(lg.real))
+                   for v, lg in zip(vals[::2], vals[1::2]))
 
     def _energy(self, W) -> list[torch.Tensor]:
         """``[⟨Ψ|O|Ψ⟩ / e^log, log]`` for the MPO ``W``, as device tensors
@@ -807,7 +1092,11 @@ class TDVPEngine:
         H_eff at site 0 and the dot product) in complex128, with only the
         value and its log-scale rounded to the working dtypes.  A complex64
         chain contracted in complex64 loses ~1e-5 in its top block (ROADMAP
-        C3); for a complex128 engine this is the plain contraction."""
+        C3); for a complex128 engine this is the plain contraction.  With
+        several states ``W`` is a :class:`pairs.PairSet` and the list holds
+        each pair's value and log-scale (:meth:`_energy_multi`)."""
+        if isinstance(W, P.PairSet):
+            return self._energy_multi(W)
         wide = torch.complex128
         block, log = self._right_block(W, wide)
         triv, real = self._trivial()
@@ -815,7 +1104,38 @@ class TDVPEngine:
         sig = K.heff_apply(triv.to(wide), self._wide(W)[0], block, psi)
         return [torch.sum(psi.conj() * sig).to(self.dtype), log.to(real.dtype)]
 
+    def _energy_multi(self, ps: P.PairSet) -> list[torch.Tensor]:
+        """:meth:`_energy` of several states: each pair's right block
+        contracted over sites N−1..1, then H_eff at site 0 and the dot
+        product with the bra state, all in complex128 (a batched chain per
+        pair group, on complex128 copies of the cores and of the MPO); the
+        list holds ``[v_q, log_q]`` for each pair q in ``ps.pairs``' order,
+        rounded to the working dtypes."""
+        wide = torch.complex128
+        if id(ps) not in self._wide_W:
+            self._wide_W[id(ps)] = (ps, ps.wide())
+        pw = self._wide_W[id(ps)][1]
+        blocks, logs = self._trivial_multi(pw, wide)
+        blocks, logs = list(blocks), list(logs)
+        for p in range(self.nsite - 1, 0, -1):
+            site = self._site(p).to(wide)
+            for q, g in enumerate(pw.groups):
+                blocks[q], logs[q] = P.normalize(P.renorm_right(
+                    blocks[q], g.bras(site), g.W[p], g.kets(site)), logs[q])
+        site = self._site(0).to(wide)
+        vals = []
+        for g, R in zip(pw.groups, blocks):
+            one = torch.ones((len(g), 1, 1, 1), dtype=wide, device=self.device)
+            sig = P.heff_terms(one, g.W[0], R, g.kets(site))
+            vals.append(torch.sum(g.bras(site).conj() * sig, dim=(1, 2, 3)))
+        _, real = self._trivial()
+        v = torch.cat(vals)[pw.order].to(self.dtype)
+        lg = torch.cat(logs)[pw.order].to(real.dtype)
+        return [t for q in range(len(pw.pairs)) for t in (v[q], lg[q])]
+
     def pop_states(self) -> list[float]:
+        if self.pairset is not None:
+            return [float(x) for x in self._norms2().tolist()]
         return [float(torch.sum(torch.abs(self.cores[0][0]) ** 2))]
 
     def bond_dims(self, istate: int = 0) -> list[int]:
@@ -858,11 +1178,15 @@ class TDVPEngine:
         return dens[0, 0, ...].cpu().numpy()
 
     def overlap_conj(self, other_cores) -> complex:
-        """⟨self|other⟩ (the explicit autocorrelation ⟨Ψ(0)|Ψ(t)⟩)."""
-        S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
-        for a, b in zip(self.cores[0], other_cores[0]):
-            S = K.ovlp_left_conj(S, a, b)
-        return complex(S[0, 0])
+        """⟨self|other⟩ summed over states (the explicit autocorrelation
+        ⟨Ψ(0)|Ψ(t)⟩)."""
+        total = 0.0 + 0.0j
+        for mine, theirs in zip(self.cores, other_cores):
+            S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
+            for a, b in zip(mine, theirs):
+                S = K.ovlp_left_conj(S, a, b)
+            total += complex(S[0, 0])
+        return total
 
     # ------------------------------------------------- operator fitting
     def apply_operator_fit(
@@ -877,15 +1201,21 @@ class TDVPEngine:
         operator's own fused MPO is built here, so its width is its own.
         Each site reads its norm back to the host, and each pair of sweeps
         the overlap with the previous fit (the convergence test), as in
-        the JAX package: an operator is applied once per workflow."""
-        W = (self.W if operator is self.hamiltonian
+        the JAX package: an operator is applied once per workflow.  With
+        several states the operator's own state pairs are summed
+        (:meth:`_fit_half_sweep_multi`), and the norm is the stacked
+        states'."""
+        W = (self._mpo(operator) if operator is self.hamiltonian
              else self._fused_cores(operator))
-        ket = [list(self.cores[0])]  # Ψ0, gauge-moved along with the fit
+        sweep = (self._fit_half_sweep if self.pairset is None
+                 else self._fit_half_sweep_multi)
+        # Ψ0, gauge-moved along with the fit
+        ket = [list(state) for state in self.cores]
         norm = 0.0
         for _ in range(maxiter):
-            prev = [list(self.cores[0])]
-            norm = self._fit_half_sweep(W, ket, forward=True)
-            norm = self._fit_half_sweep(W, ket, forward=False)
+            prev = [list(state) for state in self.cores]
+            norm = sweep(W, ket, forward=True)
+            norm = sweep(W, ket, forward=False)
             if abs(1.0 - abs(self.overlap_conj(prev))) < conv_tol:
                 break
         self.invalidate_env()
@@ -931,6 +1261,65 @@ class TDVPEngine:
             sys_block = renorm(sys_block, phi[p], W[p], psi0[p])
         return norm
 
+    def _fit_half_sweep_multi(self, ps: P.PairSet, ket,
+                              forward: bool) -> float:
+        """:meth:`_fit_half_sweep` over several states (the JAX package's
+        ``_fit_half_sweep``): each state i of the fit becomes the sum over
+        the operator's pairs (i, j) of ``O_eff`` applied to Ψ0's state j (a
+        batched chain per pair group), the stacked fit is normalised, and
+        every state of both chains moves its gauge on.  Returns the last
+        site's norm."""
+        nsite = self.nsite
+        phi, groups = self.cores, ps.groups
+
+        def stacked(chain, p):
+            return torch.stack([state[p] for state in chain])
+
+        def transfer(blocks, p, fwd):
+            bra, kt = stacked(phi, p), stacked(ket, p)
+            fn = P.renorm_left if fwd else P.renorm_right
+            return [fn(B, g.bras(bra), g.W[p], g.kets(kt))
+                    for g, B in zip(groups, blocks)]
+
+        one, _ = self._trivial_multi(ps)
+        env_stack = [list(one)]
+        env_rng = range(nsite - 1, 0, -1) if forward else range(nsite - 1)
+        for p in env_rng:
+            env_stack.append(transfer(env_stack[-1], p, not forward))
+        sys_blocks = list(one)
+        order = range(nsite) if forward else range(nsite - 1, -1, -1)
+        norm = 0.0
+        for p in order:
+            env_blocks = env_stack.pop()
+            Ls, Rs = ((sys_blocks, env_blocks) if forward
+                      else (env_blocks, sys_blocks))
+            kt = stacked(ket, p)
+            new = None
+            for g, L, R in zip(groups, Ls, Rs):
+                t = P.heff_terms(L, g.W[p], R, g.kets(kt))
+                s = g.scatter(None) @ t.reshape(len(g), -1)
+                new = s if new is None else new + s
+            # the site's one host read
+            norm = float(torch.linalg.vector_norm(new))
+            new = (new / norm).reshape(self.nstate, *t.shape[1:])
+            for state, core in zip(phi, new.unbind(0)):
+                state[p] = core
+            if p == (nsite - 1 if forward else 0):
+                break
+            q = p + 1 if forward else p - 1
+            for chain in (phi, ket):
+                for state in chain:
+                    if forward:
+                        a, sig = K.qr_right(state[p])
+                        state[p] = a
+                        state[q] = K.absorb_right(sig, state[q])
+                    else:
+                        sig, b = K.lq_left(state[p])
+                        state[p] = b
+                        state[q] = K.absorb_left(state[q], sig)
+            sys_blocks = transfer(sys_blocks, p, forward)
+        return norm
+
     def invalidate_env(self) -> None:
         """Drop the environment stack: the next sweep rebuilds it."""
         self.env_stack = None
@@ -941,16 +1330,26 @@ class TDVPEngine:
             return abs(self.trace())
         return math.sqrt(sum(self.pop_states()))
 
+    def canonicalize(self) -> None:
+        """Left-canonicalise every state, A…A·Psi with the centre at the
+        last site, by QR sweeps on the device."""
+        for cores in self.cores:
+            for p in range(self.nsite - 1):
+                a, sig = K.qr_right(cores[p])
+                cores[p] = a
+                cores[p + 1] = K.absorb_right(sig, cores[p + 1])
+        self.invalidate_env()
+
     # ---------------------------------------------- Liouville space (MPDO)
     def right_canonicalize(self) -> None:
         """Psi·B…B with the centre at site 0 — the engine's between-step
-        invariant — by LQ sweeps on the device (CholeskyQR³ at the large
-        bonds)."""
-        cores = self.cores[0]
-        for p in range(self.nsite - 1, 0, -1):
-            sig, b = K.lq_left(cores[p])
-            cores[p] = b
-            cores[p - 1] = K.absorb_left(cores[p - 1], sig)
+        invariant — for every state, by LQ sweeps on the device
+        (CholeskyQR³ at the large bonds)."""
+        for cores in self.cores:
+            for p in range(self.nsite - 1, 0, -1):
+                sig, b = K.lq_left(cores[p])
+                cores[p] = b
+                cores[p - 1] = K.absorb_left(cores[p - 1], sig)
         self.env_stack = None
         self._env_side = None
 
@@ -1002,18 +1401,23 @@ class TDVPEngine:
         return out
 
     def autocorr(self) -> complex:
-        """T/2-trick autocorrelation ⟨Ψ*|Ψ⟩ (no conjugation)."""
-        S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
-        for c in self.cores[0]:
-            S = K.ovlp_left_noconj(S, c, c)
-        return complex(S[0, 0])
+        """T/2-trick autocorrelation ⟨Ψ*|Ψ⟩ (no conjugation), summed over
+        states."""
+        total = 0.0 + 0.0j
+        for cores in self.cores:
+            S = torch.ones((1, 1), dtype=self.dtype, device=self.device)
+            for c in cores:
+                S = K.ovlp_left_noconj(S, c, c)
+            total += complex(S[0, 0])
+        return total
 
     def distance(self, other: "TDVPEngine") -> float:
         """‖Ψ−Φ‖ via overlaps (reference ``distance_MPS``)."""
         n1 = sum(self.pop_states())
         n2 = sum(other.pop_states())
         ov = self.overlap_conj(
-            [[c.to(self.device, self.dtype) for c in other.cores[0]]])
+            [[c.to(self.device, self.dtype) for c in state]
+             for state in other.cores])
         return math.sqrt(max(n1 + n2 - 2.0 * ov.real, 0.0))
 
     def ground_state_stats(self, reset: bool = True) -> dict:
@@ -1066,16 +1470,18 @@ class TDVPEngine:
         total = 0.0
         for p in range(self.nsite):
             l, n, r = (int(x) for x in self.cores[0][p].shape)
-            W = self.W[p]
-            wl, wr = int(W.shape[0]), int(W.shape[3])
-            hchain = 8.0 * (
-                l * r * n * (wl * l + wr * r) + l * r * n * n * wl * wr
-            )
-            kchain = 8.0 * (l * r * (wl * l + wr * r))
-            total += 2.0 * (
-                (avg_krylov + 1.0) * hchain + hchain
-                + (avg_krylov + 1.0) * kchain
-            )
+            # one chain a state pair
+            for Wq in self.W_pairs.values():
+                W = Wq[p]
+                wl, wr = int(W.shape[0]), int(W.shape[3])
+                hchain = 8.0 * (
+                    l * r * n * (wl * l + wr * r) + l * r * n * n * wl * wr
+                )
+                kchain = 8.0 * (l * r * (wl * l + wr * r))
+                total += 2.0 * (
+                    (avg_krylov + 1.0) * hchain + hchain
+                    + (avg_krylov + 1.0) * kchain
+                )
         return total
 
     def to_numpy(self) -> list[list[np.ndarray]]:

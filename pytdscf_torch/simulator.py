@@ -1,7 +1,8 @@
 """Simulator: the user-facing entry point (relax / operate / propagate), in PyTorch.
 
-The counterpart of the JAX package's ``simulator.py`` for the one-state MPS
-of the ported engine: ``Simulator(jobname, model).relax(...)``,
+The counterpart of the JAX package's ``simulator.py`` for the MPS of the
+ported engine, of one or several electronic states (one MPS per state, a
+fused MPO per coupled state pair): ``Simulator(jobname, model).relax(...)``,
 ``.operate(...)`` and ``.propagate(...)`` with the same signatures, time
 units (fs), jobname conventions (``{jobname}_relax``, ``_operate``,
 ``_prop``), wavefunction backup files (``wf_{jobname}_gs.pkl`` after
@@ -12,14 +13,15 @@ takes ``device``, the card unless the caller asks for the CPU, and
 computes in complex64 on the card and complex128 on the CPU unless
 ``dtype`` says otherwise.  The IR-spectrum workflow (relax, apply the
 dipole μ·E, propagate, Fourier-transform the autocorrelation with
-``spectra``) runs whole.
+``spectra``) runs whole.  ``proj_gs`` starts each vibration from the
+ground state of ``model.primbas_gs`` projected onto the state's own
+primitives, and ``model.ints_prim_file`` caches the primitive-integral
+tables (``basis.primints.PrimInts``) as a pickle.
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
-several electronic states and the ground-state projection ``proj_gs``
-with its primitive-integral tables (A3), adaptive bond dimension (A9),
-the 4th-order splittings, one-site gates, Kraus maps and time-dependent
-Hamiltonians (A10), MCTDH, the MPS-MCTDH hybrid and CMF (A12), and the
-multi-device engines (A13).  The JAX package's advisory about small models
+adaptive bond dimension (A9), the 4th-order splittings, one-site gates,
+Kraus maps and time-dependent Hamiltonians (A10), MCTDH, the MPS-MCTDH
+hybrid and CMF (A12), and the multi-device engines (A13).  The JAX package's advisory about small models
 on a TPU is not carried over.
 
 ``fetch_stride`` (default 16 in complex64, 1 in complex128) runs the
@@ -113,10 +115,6 @@ class Simulator:
             self.ci_type = "mps"
         if self.ci_type not in ("mps", "mctdh"):
             raise NotImplementedError(f"unknown ci_type {ci_type}")
-        if proj_gs:
-            raise _not_ported(
-                "proj_gs (the ground-state projection and its primitive "
-                "integrals)", "A3")
         self.proj_gs = proj_gs
 
     # ------------------------------------------------------------------
@@ -358,6 +356,15 @@ class Simulator:
                         vec = np.asarray(
                             model.init_weight_VIBSTATE[istate][d], dtype=complex
                         )
+                    elif self.proj_gs and model.primbas_gs is not None:
+                        # vib functions projected from the ground-state basis
+                        # (reference SPFCoef.alloc_proj_gs semantics)
+                        from pytdscf_torch.basis.op_matrix import op_matrix
+
+                        ov = op_matrix(
+                            prim, model.primbas_gs[d], "ovlp"
+                        )
+                        vec = np.asarray(ov[:, 0], dtype=complex)
                     else:
                         vec = np.zeros(phys_dims[d], dtype=complex)
                         vec[0] = 1.0
@@ -380,12 +387,20 @@ class Simulator:
         return cores
 
     def _prepare_primints(self):
-        """The primitive-integral tables of an HO model (reference
-        ``get_primitive_integrals``, ``simulator_cls.py:469-489``): the
-        port's slices use none."""
+        """Build / cache primitive-integral tables (reference
+        ``get_primitive_integrals``, ``simulator_cls.py:469-489``)."""
         if getattr(self.model, "ints_prim_file", None) is None:
             return None
-        raise _not_ported("primitive-integral tables (ints_prim_file)", "A3")
+        import os as _os
+
+        from pytdscf_torch.basis.primints import PrimInts
+
+        path = self.model.ints_prim_file
+        if _os.path.exists(path):
+            return PrimInts.load(path)
+        ints = PrimInts(self.model)
+        ints.save(path)
+        return ints
 
     def _save(self, engine, jobname: str, ext: str) -> None:
         path = f"wf_{self.jobname}{ext}.pkl"

@@ -65,8 +65,8 @@ from chip_smoke import (  # noqa: E402
     MODEL_B_BOND,
     MODEL_B_DT,
     MODEL_B_EVERY,
+    MODEL_B_GOLD_STEPS,
     MODEL_B_NFOCK,
-    MODEL_B_STEPS,
     PYRAZINE_AC_ROWS,
     PYRAZINE_BOND,
     PYRAZINE_DT,
@@ -221,7 +221,7 @@ def main() -> None:
     if args.model == "pyrazine":
         out = run_pyrazine(pkg, args.steps or PYRAZINE_STEPS)
     elif args.model == "model_b":
-        out = run_model_b(pkg, args.steps or MODEL_B_STEPS)
+        out = run_model_b(pkg, args.steps or MODEL_B_GOLD_STEPS)
     else:
         out = run_dvr(pkg)
     print(json.dumps(out), flush=True)

@@ -153,8 +153,10 @@ def test_engine_defaults_to_the_card():
 
 
 def test_multi_state_and_gates_raise():
+    """Two states run (ROADMAP A3, ``tests/test_torch_multistate.py``),
+    but not under an operator of one state; the gates are A10's."""
     cores, ham, _ = _start()
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="operator of 1 states on 2"):
         TDVPEngine(cores + cores, ham, Config(), "cpu")
     engine = TDVPEngine(cores, ham, Config(), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):

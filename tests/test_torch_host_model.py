@@ -128,6 +128,8 @@ def test_port_imports_without_jax():
         "import pytdscf_torch.model, pytdscf_torch.mps.cuda_matvec\n"
         "import pytdscf_torch.spectra, pytdscf_torch.potentials\n"
         "import pytdscf_torch.operators.sop, pytdscf_torch.basis.op_matrix\n"
+        "import pytdscf_torch.basis.primints, pytdscf_torch.util.helper_input\n"
+        "import pytdscf_torch.mps.pairs\n"
         "bad = [m for m in sys.modules if m.startswith('pytdscf_tpu')\n"
         "       or (m.split('.')[0] == 'jax' and sys.modules[m] is not None)]\n"
         "assert not bad, bad\n"
@@ -248,7 +250,7 @@ COPIES = [
 REWRITTEN = {
     "Simulator.__init__", "Simulator.propagate", "Simulator.relax",
     "Simulator.operate", "Simulator._auto_dtype", "Simulator._initial_engine",
-    "Simulator._prepare_primints", "Simulator._execute",
+    "Simulator._execute",
 }
 
 
@@ -390,7 +392,15 @@ FILE_CHANGES = {
         "operators/__init__.py", "ase_handler.py", "potentials/ch2o.py",
         "potentials/_tables.py", "potentials/__init__.py",
         "util/converters.py", "util/grid2qff.py", "util/hess_util.py",
-        *_SHIMS)},
+        "util/helper_input.py", *_SHIMS)},
+    # the primitive-integral tables come from op_matrix alone: the JAX
+    # package's optional native kernels are not copied
+    "basis/primints.py": ([
+        "Gauss–Hermite cross-basis overlaps; the JAX package's native C++ kernels,",
+        "an optional accelerator of the same integrals, are not copied).",
+    ], [
+        "Gauss–Hermite cross-basis overlaps, optionally the native C++ kernels).",
+    ]),
     # h5py imported where a file is read, so that the port imports where
     # h5py is missing (the GPU machine), as util/nc4.py does
     "util/read_nc.py": ([
@@ -415,6 +425,42 @@ def test_whole_file_copies(path):
     added = [ln[2:] for ln in diff if ln.startswith("+ ")]
     dropped = [ln[2:] for ln in diff if ln.startswith("- ")]
     assert (added, dropped) == FILE_CHANGES[path], path
+
+
+def test_primints_tables_identical(tmp_path):
+    """The Ambrosek aggregate's primitive-integral tables
+    (``basis/primints.PrimInts``: every state pair, operator and DOF)
+    through the port's copies and the JAX package's modules, entry by
+    entry, and through the port's pickle cache."""
+    import importlib
+
+    from torch_ported import ported
+
+    jt = importlib.import_module("tests.test_relax_operate")
+    from pytdscf_torch.basis.primints import PrimInts as TP
+    from pytdscf_tpu.basis.primints import PrimInts as JP
+
+    from pytdscf_torch import units
+
+    coupling = -0.04 / units.au_in_eV
+    want = JP(jt._build_model(coupling, 5, proj_gs=True))
+    got = TP(ported(jt._build_model)(coupling, 5, proj_gs=True))
+    assert got.tables.keys() == want.tables.keys()
+    assert len(got.tables) == 4 and got.op_keys() == want.op_keys()
+    for pair, per_op in want.tables.items():
+        for key, mats in per_op.items():
+            assert len(got[pair][key]) == len(mats) == 4
+            for a, b in zip(got[pair][key], mats):
+                assert (a is None) == (b is None), (pair, key)
+                if b is not None:
+                    assert a.dtype == b.dtype and np.array_equal(a, b)
+    path = str(tmp_path / "ints.pkl")
+    got.save(path)
+    back = TP.load(path)
+    assert all(np.array_equal(a, b)
+               for pair in got.tables for key in got[pair]
+               for a, b in zip(back[pair][key], got[pair][key])
+               if b is not None)
 
 
 def _fused_cores(built):

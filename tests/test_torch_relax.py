@@ -396,9 +396,14 @@ def test_explicit_autocorr_matches_jax(jx, tmp_path, monkeypatch):
 
 
 def test_relax_refusals_name_a3():
+    """``proj_gs`` is ported (A3, ``tests/test_torch_multistate.py``): a
+    model without ``primbas_gs`` starts from its own Hartree product."""
     model, _ = _small_models()
-    with pytest.raises(NotImplementedError, match="A3"):
-        Simulator("x", model, proj_gs=True, device="cpu")
+    sim = Simulator("x", model, proj_gs=True, device="cpu")
+    assert sim.proj_gs and model.primbas_gs is None
+    plain = Simulator("x", model, device="cpu")._alloc_initial_cores()
+    for a, b in zip(sim._alloc_initial_cores(), plain):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError, match="relax"):
         Config(relax="sideways")
 

@@ -192,13 +192,20 @@ def test_refused_options_name_their_item(in_tmp, make, kw, item):
 
 @pytest.mark.parametrize("call", ["relax", "operate", "proj_gs"])
 def test_relax_operate_and_proj_gs_raise(call, in_tmp):
-    """``relax`` and ``operate`` run for one electronic state
-    (``tests/test_torch_relax.py``, ``tests/test_torch_workflow.py``); on
-    a two-state model they raise, as ``proj_gs`` does, naming A3."""
+    """``relax``, ``operate`` and ``proj_gs`` run on a two-state model
+    (ROADMAP A3, ported; ``tests/test_torch_multistate.py`` holds them to
+    the JAX package's literals): improved relaxation lowers ⟨H⟩ below the
+    start's with the norm kept, the fit returns ‖H|Ψ⟩‖ > 0 with a unit
+    fitted state, ``proj_gs`` starts from ``primbas_gs``'s ground state."""
+    from pytdscf_torch.config import Config
+
     if call == "proj_gs":
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            Simulator("r", _model(singlet_fission_chain, Model),
-                      proj_gs=True, device="cpu")
+        model = _model(singlet_fission_chain, Model)
+        sim = Simulator("r", model, proj_gs=True, device="cpu")
+        assert sim.proj_gs and model.primbas_gs is None
+        plain = Simulator("r", model, device="cpu")._alloc_initial_cores()
+        for a, b in zip(sim._alloc_initial_cores(), plain):
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))
         return
     from pytdscf_torch.basis.ho import PrimBas_HO
     from pytdscf_torch.model import BasInfo
@@ -210,8 +217,16 @@ def test_relax_operate_and_proj_gs_raise(call, in_tmp):
                                 matJ=[[0.0, 1.0e-3], [1.0e-3, 1.0e-2]])
     ham.set_HO_potential(basinfo)
     model = Model(basinfo, {"hamiltonian": ham}, bond_dim=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        getattr(Simulator("r", model, device="cpu"), call)()
+    sim = Simulator("r", model, device="cpu")
+    start = sim._initial_engine(Config(), False, "")
+    e0 = start.expectation().real
+    value, wf = getattr(sim, call)()
+    assert wf.engine.nstate == 2 and len(wf.engine.pairs) == 4
+    assert abs(wf.norm() - 1.0) < 1e-10
+    if call == "relax":
+        assert value < e0
+    else:
+        assert value > 0.0
 
 
 def test_reduced_density_without_h5py_fails_before_any_step(in_tmp,

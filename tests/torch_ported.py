@@ -6,8 +6,10 @@ of its helpers) so that every name its module imported from
 object of the same module path and name, and ``Simulator`` to the port's
 on the CPU.  The body, its literals and its tolerances stay the JAX
 test's own; helpers it calls that are not rebound (the dense references
-assembled from published constants) stay the JAX suite's.  Importing a
-JAX test module imports JAX: call this inside a test, never at import.
+assembled from published constants) stay the JAX suite's.
+:func:`ported_source` does the same for a body that imports its names
+inside itself, by recompiling its source.  Importing a JAX test module
+imports JAX: call these inside a test, never at import.
 """
 
 from __future__ import annotations
@@ -45,6 +47,19 @@ def ported(fn, **names):
     scope.update(names)
     return types.FunctionType(fn.__code__, scope, fn.__name__,
                               fn.__defaults__, fn.__closure__)
+
+
+def ported_source(fn):
+    """``fn`` recompiled from its source with the package name replaced
+    by the port's: :func:`ported` for a body that imports its
+    ``pytdscf_tpu`` names inside itself."""
+    import inspect
+    import textwrap
+
+    src = textwrap.dedent(inspect.getsource(fn)).replace(JAX_PKG, PORT_PKG)
+    scope = {key: port_object(val) for key, val in fn.__globals__.items()}
+    exec(compile(src, inspect.getsourcefile(fn), "exec"), scope)
+    return scope[fn.__name__]
 
 
 def fused_digest(package: str, builder: str, kwargs: dict) -> list:
