@@ -222,7 +222,23 @@ Phases (any failure exits nonzero, before the result line):
       steps, MGS at (64, 8) live and with no weight, and at (8, 8), each
       timed beside ``torch.linalg.qr`` / ``torch.linalg.matrix_exp``), the
       launches of one pair-sum matvec; then a replayed step under the
-      profiler against the same step host-driven and 8 timed replays.
+      profiler against the same step host-driven and 8 timed replays;
+20. adaptive bond dimension (a1TDVP, the variable-width sweep):
+   ``examples/lh2_exciton_transfer.py``'s 81-site LH2 chain at full width
+   (9 molecules × 3 chromophores, each an exciton site and two boson sites
+   of 10 Fock states; D=40) through ``Simulator.propagate(adaptive=True)``
+   at the example's settings (Dmax 40, p_svd 1e-20, p_proj 1e-9, dt 0.2
+   fs, the 27 chromophore projectors every 10 steps), a warm-up step and
+   then 10 more from its checkpoint, every step host-driven (each bond
+   reads its singular values twice): the populations, ⟨H⟩ and the norm of
+   the end state against ``scripts/a9_gold.json`` (the JAX package in
+   complex128; bars three times the port's complex64 CPU run's distance),
+   no plain call, the bond dimensions reached; one more step traced (its
+   launches by route, the busy share) and its MGS launches by shape; the
+   Lanczos kernel at the widest (400, 40) boson site on one block, the
+   widest (80, 40) exciton site on a cluster and a (40, 40) K step, and
+   MGS at (400, 40), each on the end state's operands against its plain
+   version and timed.
 
 Every run of the chain gates the complex64 ⟨H⟩ it reports at 5e-6: the
 engine contracts ⟨H⟩ in complex128 and rounds only the value to
@@ -3261,11 +3277,15 @@ def centred_operands(engine, p: int):
     is the Hamiltonian projected on the site's space and ψ the centre:
     ((L, lL), W, (R, lR), ψ, the next core or None at the last site)."""
     from pytdscf_torch.mps import kernels as K
+    from pytdscf_torch.mps.tdvp import _adaptive_qr
 
     cores = [c.clone() for c in engine.cores[0]]
     for q in range(p):
-        a, sig = K.qr_right(cores[q])
-        cores[q] = a
+        # the adaptive sweep's QR: a bond it widened past what the site
+        # holds (N < r) takes the gauge of min(N, r) columns
+        l, n, r = cores[q].shape
+        a, sig = _adaptive_qr(cores[q].reshape(l * n, r))
+        cores[q] = a.reshape(l, n, -1)
         cores[q + 1] = K.absorb_right(sig, cores[q + 1])
     saved = engine.cores[0]
     engine.cores[0] = cores
@@ -3638,6 +3658,27 @@ LH2_REPLAYS = 8
 # complex128)
 LH2_POP_TOL = 1.61e-6
 LH2_E_TOL = 3.32e-6
+# adaptive bond dimension (a1TDVP): the 81-site LH2 chain of
+# examples/lh2_exciton_transfer.py at its own settings (models.lh2.lh2_chain:
+# 9 molecules × (γ, β, α) chromophores, each an exciton site and two boson
+# sites of 10 Fock states; D=40 and adaptive_Dmax 40, adaptive_p_svd 1e-20,
+# adaptive_p_proj 1e-9, the default adaptive_dD 5, dt 0.2 fs), one step and
+# then CHAIN_STEPS more through Simulator.propagate, against
+# scripts/a9_gold.py's gold (the JAX package in complex128) after the last
+CHAIN_NMOL = 9
+CHAIN_NFOCK = 10
+CHAIN_BOND = 40
+CHAIN_DT = 0.2
+CHAIN_P_SVD = 1.0e-20
+CHAIN_P_PROJ = 1.0e-09
+CHAIN_STEPS = 10
+CHAIN_GOLD = "scripts/a9_gold.json"
+# the bars: three times the port's complex64 CPU run (scripts/a9_gold.py
+# chain --port complex64) from the gold: its populations 1.2198e-4 (8γ; the
+# port in complex128 on its MGS gauge reads 8.41e-5, so most of it is the
+# gold's LAPACK gauge), its ⟨H⟩ 3.195e-7 relative
+CHAIN_POP_TOL = 3.66e-4
+CHAIN_E_TOL = 9.58e-7
 
 
 def ambrosek_literal(case: str) -> float:
@@ -3715,6 +3756,38 @@ def lh2_model(pkg: str):
                                bond_dim=LH2_BOND)
     model.init_weight_ESTATE = [1.0] + [0.0] * (basinfo.get_nstate() - 1)
     return model
+
+
+def lh2_chain_model(pkg: str, nmol: int = CHAIN_NMOL,
+                    nfock: int = CHAIN_NFOCK, bond: int = CHAIN_BOND):
+    """examples/lh2_exciton_transfer.py's model, built by the package named
+    ``pkg``: ``lh2_chain(nmol, nfock)`` at bond dimension ``bond``, the γ
+    excitons of the first and last molecule excited, and the example's
+    chromophore projectors ("{i}gamma", "{i}beta", "{i}alpha": |1⟩⟨1| on
+    the chromophore's exciton site) as the model's observables.  Returns
+    (model, the projectors by name)."""
+    import importlib
+
+    def mod(path):
+        return importlib.import_module(f"{pkg}.{path}")
+
+    lh2 = mod("models.lh2")
+    TensorHamiltonian = mod("operators.hamiltonian").TensorHamiltonian
+    TensorOperator = mod("operators.tensor_op").TensorOperator
+    basis, ham, site_map = lh2.lh2_chain(nmol=nmol, nfock=nfock)
+    proj = np.zeros((1, 2, 2, 1))
+    proj[0, 1, 1, 0] = 1.0
+    ops = {}
+    for kind in ("gamma", "beta", "alpha"):
+        for imol, s in enumerate(site_map[kind]):
+            ops[f"{imol}{kind}"] = TensorHamiltonian(
+                ndof=len(basis),
+                potential=[[{(s, s): TensorOperator(mpo=[proj], legs=(s, s))}]],
+                kinetic=None)
+    model = mod("model").Model(basis, {"hamiltonian": ham, **ops},
+                               bond_dim=bond)
+    model.init_HartreeProduct = [lh2.lh2_initial_weights(basis, site_map)]
+    return model, ops
 
 
 class ModelBBuild:
@@ -4651,6 +4724,176 @@ def phase_lh2(times) -> dict:
             "krylov_ctl": (n_ctl, err_ctl)}
 
 
+def phase_lh2_chain(times) -> dict:
+    """examples/lh2_exciton_transfer.py on the card: the 81-site LH2 chain at
+    full width (nfock 10, D=40) through ``Simulator.propagate`` with
+    ``adaptive=True`` at the example's settings (its 27 chromophore
+    projectors every 10 steps), one warm-up step and then CHAIN_STEPS more
+    from its checkpoint, every step host-driven: the 27 populations, ⟨H⟩
+    and the norm of the end state within CHAIN_POP_TOL, CHAIN_E_TOL
+    (relative) and NORM_TOL of scripts/a9_gold.py's gold; no plain call;
+    the bond dimensions reached beside the gold's.  Then one more step
+    under the profiler (its launches by route as traced equal to the
+    counters'; busy share) and its MGS launches by shape (one a gauge
+    move); then the kernels of the path on the end state's operands (the
+    centre moved there): the Lanczos H step at the widest boson site
+    (400, 40) on one block and at the widest exciton site (80, 40) on a
+    cluster, the K step at a (40, 40) bond, and MGS at (400, 40), each
+    against its plain version and timed."""
+    import torch
+
+    from pytdscf_torch import Simulator
+    from pytdscf_torch.mps import cuda_lanczos as CL
+    from pytdscf_torch.mps import kernels as K
+    from pytdscf_torch.mps.tdvp import _normalize_block
+
+    tag = "lh2 chain"
+    t0 = time.perf_counter()
+    model, ops = lh2_chain_model("pytdscf_torch")
+    built = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, CHAIN_GOLD)) as fh:
+        gold = json.load(fh)
+    require(gold["steps"] == 1 + CHAIN_STEPS and gold["dt_fs"] == CHAIN_DT
+            and gold["bond"] == CHAIN_BOND and gold["nfock"] == CHAIN_NFOCK
+            and gold["p_svd"] == CHAIN_P_SVD
+            and gold["p_proj"] == CHAIN_P_PROJ,
+            f"{tag}: the gold's settings differ from the smoke's")
+    kw = dict(stepsize=CHAIN_DT, energy=True, autocorr=False,
+              observables=True, observables_per_step=10, adaptive=True,
+              adaptive_Dmax=CHAIN_BOND, adaptive_p_svd=CHAIN_P_SVD,
+              adaptive_p_proj=CHAIN_P_PROJ)
+    dt = fs(CHAIN_DT)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            sim = Simulator("lh2c", model, verbose=0)
+            (_, wf), warm_s, _, _ = timed_phase(
+                f"{tag}: the warm-up step", lambda: sim.propagate(
+                    maxstep=1, **kw))
+            warm_bonds = wf.engine.bond_dims()
+            (_, wf), wall, n, peak = timed_phase(
+                f"{tag}: propagate ({CHAIN_STEPS} steps of {CHAIN_DT} fs "
+                "from the warm-up step's checkpoint)", lambda: sim.propagate(
+                    maxstep=CHAIN_STEPS, restart=True, loadfile_ext="",
+                    **kw))
+            engine = wf.engine
+            kry, calls, capped, _ = engine.krylov_stats(reset=False)
+            bonds = engine.bond_dims()
+            rows = np.loadtxt("lh2c_prop/bonddim.dat", ndmin=2)
+            log(f"{tag}: {engine.nsite} sites, built in {built:.1f} s; warm-up "
+                f"step {warm_s:.3f} s (bonds after it: max {max(warm_bonds)}, "
+                f"sum {sum(warm_bonds)}); {wall / CHAIN_STEPS:.4f} s/step "
+                f"host-driven ({sim.diagnostics.report()}); peak "
+                f"{peak / 2**20:.1f} MiB; Krylov mean {kry:.3f} over {calls} "
+                f"calls ({capped} capped); launches {launch_text(n)}")
+            log(f"{tag}: bonds before each step (bonddim.dat), sum "
+                f"{[int(r) for r in rows[:, 1:].sum(axis=1)]}; after the "
+                f"last {bonds} (the gold's {gold['bonds']})")
+            require(engine.eager_steps == CHAIN_STEPS
+                    and engine.graph_steps == 0,
+                    f"{tag}: {engine.graph_steps} replayed steps")
+            require(n["lanczos_expm"] > 0 and n["mgs_qr"] > 0
+                    and n["site_step"] == n["lanczos_gs"] == 0,
+                    f"{tag}: launches {launch_text(n)}")
+            require(n["lanczos_expm_routes"]["block"] > 0,
+                    f"{tag}: no H step on the one-block route")
+            e_end = float(engine.expectation().real)
+            e64 = energy64(engine)
+            norm = engine.norm()
+            pops = {name: float(engine.expectation(op).real)
+                    for name, op in ops.items()}
+            gap = max(abs(pops[k] - gold["pops"][k]) for k in gold["pops"])
+            e_gap = abs(e_end - gold["energy"]) / abs(gold["energy"])
+            log(f"{tag}: populations max |Δ| from gold {gap:.3e} (bar "
+                f"{CHAIN_POP_TOL}); γ₀ {pops['0gamma']:.9f} (gold "
+                f"{gold['pops']['0gamma']:.9f}), Σ {sum(pops.values())!r}; "
+                f"⟨H⟩ {e_end!r} (energy64 {e64!r}; gold {gold['energy']!r}, "
+                f"relative |Δ| {e_gap:.3e}, bar {CHAIN_E_TOL}); norm "
+                f"{norm!r} (gold {gold['norm']!r})")
+            require(gap <= CHAIN_POP_TOL, f"{tag}: populations {gap:.3e} "
+                    "from gold")
+            require(e_gap <= CHAIN_E_TOL, f"{tag}: ⟨H⟩ {e_end} vs gold "
+                    f"{gold['energy']}")
+            require(abs(norm - 1.0) <= NORM_TOL
+                    and abs(norm - gold["norm"]) <= NORM_TOL,
+                    f"{tag}: norm {norm}")
+            # ---- one more step, traced, its MGS launches by shape
+            enriched = engine.enrichments
+            shapes, busy, n_t = traced_run(
+                f"{tag}: one traced step", lambda: mgs_launch_shapes(
+                    lambda: engine.propagate(dt)))
+            enriched = engine.enrichments - enriched
+            times["mgs_step_shapes"][tag] = shape_counts(shapes)
+            # a launch a gauge move, and one more a move it enriched
+            require(len(shapes) == 2 * (engine.nsite - 1) + enriched,
+                    f"{tag}: {len(shapes)} MGS launches a step, "
+                    f"{2 * (engine.nsite - 1)} gauge moves, {enriched} "
+                    "enriched")
+            log(f"{tag}: one step traced, launches {launch_text(n_t)}, the "
+                f"device {100 * busy:.1f} % busy, {enriched} gauge moves "
+                f"enriched; its MGS launches by shape "
+                f"{times['mgs_step_shapes'][tag]}")
+            # ---- the kernels on the end state's operands
+            cores = engine.cores[0]
+            widths = [int(w.shape[-1]) for w in engine.W]
+
+            def widest(d):
+                sites = [p for p, c in enumerate(cores)
+                         if tuple(c.shape) == (CHAIN_BOND, d, CHAIN_BOND)]
+                require(bool(sites), f"{tag}: no ({CHAIN_BOND}, {d}, "
+                        f"{CHAIN_BOND}) site after the run")
+                return max(sites, key=lambda p: (widths[p], -p))
+
+            cases, err = [], 0.0
+            for d, way in ((CHAIN_NFOCK, "block"), (2, "cluster")):
+                p = widest(d)
+                ch, v, scale, _ = centred_h_step(engine, p, dt)
+                got = CL.route(*v.shape, ch[0].shape[0])
+                require(got == way, f"{tag}: site {p} on the {got} route")
+                case = check_lanczos_site(f"{tag} lanczos H step, site {p}",
+                                          ch, v, scale, engine.config)
+                err = max(err, case["max_abs_err"])
+                cases.append(case)
+            # the K step of the bond right of that boson site: its block
+            # through the site's gauge, the environment right of it
+            p = widest(CHAIN_NFOCK)
+            (L, lL), W, (R, lR), psi, _ = centred_operands(engine, p)
+            m = psi.reshape(-1, psi.shape[2]).contiguous()
+            a, sig = K.qr_right(psi)
+            block, dl = _normalize_block(K.renorm_block_left(L, a, W, a))
+            kch = CL.keff_channels(block, R, torch.exp(lL + dl + lR))
+            s = (sig / torch.linalg.vector_norm(sig)).contiguous()
+            case = check_lanczos_site(f"{tag} lanczos K step, site {p}", kch,
+                                      s, -scale, engine.config)
+            err = max(err, case["max_abs_err"])
+            cases.append(case)
+            err_q, _, qcase = check_mgs(f"{tag} gauge, site {p}", m,
+                                        timed=True)
+            times["a9_lanczos"] = cases
+            times["a9_mgs"] = qcase
+            times["a9_runs"] = {
+                "warm_up_s": warm_s, "s_per_step": wall / CHAIN_STEPS,
+                "busy": busy,
+                "peak_mib": peak / 2**20, "bonds": bonds,
+                "bonds_sum_by_step": [int(r) for r in
+                                      rows[:, 1:].sum(axis=1)],
+                "gold_bonds": gold["bonds"], "pops_gap": gap,
+                "e_gap": e_gap, "norm": norm,
+                "enriched_a_step": enriched,
+                "launches_a_step": {
+                    "lanczos_expm": n_t["lanczos_expm"],
+                    "lanczos_expm_routes": n_t["lanczos_expm_routes"],
+                    "mgs_qr": n_t["mgs_qr"]}}
+        finally:
+            os.chdir(cwd)
+    del engine, wf
+    torch.cuda.empty_cache()
+    return {**workflow_path(n), "lanczos_expm": (n["lanczos_expm"], err),
+            "mgs_qr": (n["mgs_qr"], err_q)}
+
+
 def phase_multistate(times) -> list:
     """Phase 19: several electronic states (the Ambrosek aggregate, the
     27-state LH2 model)."""
@@ -4746,6 +4989,8 @@ def run_phases(build) -> int:
     log("one-state models: " + json.dumps(times["a4_runs"]))
     paths += clock("several states", phase_multistate(times))
     log("several states: " + json.dumps(times["a3_runs"]))
+    paths.append(clock("lh2 chain", phase_lh2_chain(times)))
+    log("lh2 chain: " + json.dumps(times["a9_runs"]))
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -4787,8 +5032,11 @@ def run_phases(build) -> int:
     # the one-state models' shapes: each timed on its own route
     kernels[0]["model_cases"] = times["a4_lanczos"]
     kernels[0]["model_b_route_ms"] = times["a4_model_b_routes"]
+    # the adaptive LH2 chain's shapes (one block, cluster, K step)
+    kernels[0]["lh2_chain_cases"] = times["a9_lanczos"]
     times["mgs_qr"]["cases"].append(times["a4_mgs"])
     times["mgs_qr"]["cases"] += times["a3_mgs"]
+    times["mgs_qr"]["cases"].append(times["a9_mgs"])
     ctl = kernels[[k["name"] for k in kernels].index("krylov_ctl")]
     ctl["model_b"] = times["a4_krylov_ctl"]
     ctl["lh2"] = times["a3_krylov_ctl"]

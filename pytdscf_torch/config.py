@@ -47,6 +47,26 @@ class Config:
     space: Literal["hilbert", "liouville"] = "hilbert"
     #: Renormalise after each local exponential (valid for Hermitian H).
     conserve_norm: bool = True
+    #: Adaptive bond dimension (a1TDVP, ``TDVPEngine._half_sweep_adaptive``):
+    #: after each site's H step the bond is enriched by up to
+    #: ``adaptive_dD`` leading directions of the projection residual
+    #: (1 − QQ†)·H_eff ψ whose singular values exceed ``adaptive_p_proj``
+    #: (absolute), never past ``adaptive_Dmax``; after the K step, singular
+    #: values of the bond matrix at or below ``adaptive_p_svd``·σ₀ are
+    #: truncated.  Adaptive sweeps run every matvec and environment
+    #: transfer at "highest" precision with no relaxed Krylov and no fused
+    #: site, whatever the other fields say, as in the JAX package.  Each
+    #: bond reads its singular values to the host twice, so a step is
+    #: driven from the host (never a recorded graph).
+    adaptive: bool = False
+    adaptive_Dmax: int = 20
+    adaptive_dD: int = 5
+    adaptive_p_proj: float = 1.0e-04
+    adaptive_p_svd: float = 1.0e-07
+    #: The JAX package's masked fixed-buffer a1TDVP (bonds padded to static
+    #: caps, the live rank carried as exact-zero channels): not ported yet
+    #: (ROADMAP A9b); the engine raises with it set.
+    adaptive_masked: bool = False
     #: Precision of the exact-prefix Krylov matvecs (iterations
     #: ``< relax_after``, or all of them without ``krylov_relaxed``):
     #: "highest" = float32 with TF32 off; "high" = bf16x3 (every operand

@@ -24,10 +24,11 @@ bf16 pass) go through the one-pair kernel wrappers (``cuda_renorm``,
 ``cuda_matvec``) pair by pair, as the JAX package's ``make_hmatvec_lo``
 does: one launch a pair.
 
-All states share their core shapes at every site (the fused MPO is built
-for state 0's physical dimensions), so a site's states stack into one
-``(nstate, l, d, r)`` tensor, flattened the Krylov vector
-(``kernels.stack_states``).
+All states share their physical dimensions (the fused MPO is built for
+state 0's) and, but under adaptive bond dimension, their bonds, so a
+site's states stack into one ``(nstate, l, d, r)`` tensor, flattened the
+Krylov vector (``kernels.stack_states``); an adaptive sweep pads the
+narrower states' bonds with zero channels (``tdvp._pad_stack``).
 """
 
 from __future__ import annotations

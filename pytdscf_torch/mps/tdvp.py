@@ -22,6 +22,15 @@ launch a site on the card where ``gs_fits``, else
 :meth:`TDVPEngine.apply_operator_fit` fits O|Ψ⟩ by alternating sweeps
 (``Simulator.operate``).
 
+Adaptive bond dimension (``Config.adaptive``, the JAX package's
+variable-width a1TDVP, :meth:`TDVPEngine._half_sweep_adaptive`) evolves
+each site as a last site would be (step 1, on the same kernels), then
+moves the gauge with enrichment (the leading directions of the residual
+(1 − QQ†)·H_eff ψ appended to Q), runs the K step on the enlarged bond and
+truncates it by SVD, reading each bond's singular values to the host
+twice; its steps run from the host, one or several electronic states, in
+every mode.
+
 Two Krylov routes.  Lanczos (Hermitian H_eff, the small-bond chains): the
 whole exponential is one ``cuda_lanczos.lanczos_expm`` call, the kernel on
 CUDA, where its channels fit (``cuda_lanczos.fits``) and the matvecs are
@@ -221,25 +230,24 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
     the relaxed-matvec counts (device scalars) of its einsum-route calls.
     """
     l, d, r = psi.shape
-    conserve = _conserve(cfg)
     if not last and _takes_fused_site(cfg, psi.shape, W.shape, nxt.shape):
         # the whole update as one call of the fused site kernel
         site_out, psi_next, block, log_new, st = CS.site_step_fused(
             psi, nxt, L, W, R, scale, cfg.thresh_exp, lL, lR,
-            forward=forward, max_dim=cfg.max_krylov, conserve=conserve,
+            forward=forward, max_dim=cfg.max_krylov, conserve=_conserve(cfg),
         )
         return site_out, psi_next, (block, log_new), [st[:2], st[2:]], []
     hfac = torch.exp(lL + lR)
     relaxed = []
-    kernel = _takes_lanczos_kernel(cfg)
-    if not kernel or not CL.fits((l * d, r), W.shape[-1], cfg.max_krylov):
+    if (not _takes_lanczos_kernel(cfg)
+            or not CL.fits((l * d, r), W.shape[-1], cfg.max_krylov)):
         psi_new, st_h, n = _einsum_expm(psi, scale, hfac, cfg, L, R, W)
         relaxed.append(n)
     else:
         ch = CL.heff_channels(L, W, R, hfac)
         out, st_h = CL.lanczos_expm(
             ch, psi.reshape(l * d, r).contiguous(), scale, cfg.thresh_exp,
-            cfg.max_krylov, conserve,
+            cfg.max_krylov, _conserve(cfg),
         )
         psi_new = out.reshape(l, d, r)
     if last:
@@ -247,20 +255,28 @@ def _site_step(psi, nxt, L, W, R, scale, lL, lR, *, cfg, forward, last):
     site_out, sig, block, log_new, l_env = _gauge_move(
         psi_new, L, W, R, lL, lR, cfg=cfg, forward=forward)
     kL, kR = (block, R) if forward else (L, block)
-    kfac = torch.exp(log_new + l_env)
-    if not kernel or not CL.fits(sig.shape, kR.shape[1], cfg.max_krylov):
-        sig_new, st_k, n = _einsum_expm(sig, -scale, kfac, cfg, kL, kR)
-        relaxed.append(n)
-    else:
-        kch = CL.keff_channels(kL, kR, kfac)
-        sig_new, st_k = CL.lanczos_expm(
-            kch, sig.contiguous(), -scale, cfg.thresh_exp, cfg.max_krylov,
-            conserve,
-        )
+    sig_new, st_k = _k_step(sig, kL, kR, torch.exp(log_new + l_env), -scale,
+                            cfg, relaxed)
     psi_next = (
         K.absorb_right(sig_new, nxt) if forward else K.absorb_left(nxt, sig_new)
     )
     return site_out, psi_next, (block, log_new), [st_h, st_k], relaxed
+
+
+def _k_step(sig, kL, kR, kfac, scale, cfg, relaxed):
+    """exp(scale·K_eff)·σ of one bond matrix between the blocks ``kL`` and
+    ``kR`` (``kfac`` their log-scale factor): the Lanczos kernel where it
+    takes the bond (:func:`_takes_lanczos_kernel`, ``cuda_lanczos.fits``),
+    else the einsum Krylov program, whose relaxed-matvec count is appended
+    to ``relaxed``.  Returns ``(σ', status)``."""
+    if (not _takes_lanczos_kernel(cfg)
+            or not CL.fits(sig.shape, kR.shape[1], cfg.max_krylov)):
+        sig_new, st_k, n = _einsum_expm(sig, scale, kfac, cfg, kL, kR)
+        relaxed.append(n)
+        return sig_new, st_k
+    kch = CL.keff_channels(kL, kR, kfac)
+    return CL.lanczos_expm(kch, sig.contiguous(), scale, cfg.thresh_exp,
+                           cfg.max_krylov, _conserve(cfg))
 
 
 def _gauge_move(psi_new, L, W, R, lL, lR, *, cfg, forward):
@@ -410,6 +426,135 @@ def _multi_site_step(psis, nxts, env, W, scale, *, cfg, groups, forward,
     return sites, list(psi_next.unbind(0)), (blocks, logs), stats, relaxed, gs
 
 
+# ------------------------------------------------------ adaptive (a1TDVP)
+def _adaptive_qr(mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Thin QR of an (N, r) matrix with min(N, r) columns of Q, as the JAX
+    package's CPU gauge (LAPACK) gives them.  For N >= r it is
+    ``kernels.thin_qr`` (the MGS kernel on the card).  An adaptive sweep
+    also meets N < r, where it has narrowed the bond on one side of a site
+    but not yet on the other; there Q is the gauge of the first N columns,
+    an (N, N) unitary whatever their rank (MGS completes every dead column
+    while the span has room), and R = Qᴴ·m."""
+    N, r = mat.shape
+    if N >= r:
+        return K.thin_qr(mat)
+    q, _ = K.thin_qr(mat[:, :N])
+    return q, q.mH @ mat
+
+
+def _svd(a: torch.Tensor):
+    """The thin SVD of a sweep's small matrix in complex128 on ``a``'s own
+    device: ``(u, s, vh)``, u and vh cast back to ``a``'s dtype, s float64
+    (the caller reads s to the host for its count).  cuSOLVER's complex64
+    SVD returns singular vectors orthonormal only to ~1e-5 (measured on an
+    H100 by ``scripts/adaptive_svd.py``), which the gauge of an adaptive
+    sweep carries along the chain (the 81-site LH2 chain's ⟨H⟩ 2e-4 off
+    after one step); in complex128 they are orthonormal to ~2e-7."""
+    u, s, vh = torch.linalg.svd(a.to(torch.complex128), full_matrices=False)
+    return u.to(a.dtype), s, vh.to(a.dtype)
+
+
+def _enrich(psi, hpsi, cfg, forward: bool):
+    """The gauge move of an evolved site with subspace enrichment (the JAX
+    package's ``_half_sweep_adaptive``): the thin QR of ψ (as a matrix
+    towards the sweep's next site), then up to ``adaptive_dD`` leading
+    left-singular directions of the residual (1 − QQ†)·H_eff ψ whose
+    singular values exceed ``adaptive_p_proj``, never past
+    ``min(adaptive_Dmax, N)`` columns, appended to Q with zero rows of σ;
+    the enlarged frame is orthonormalised once more (a thin QR of [Q | u],
+    σ carried into it), which exact arithmetic makes a no-op.  The
+    residual's singular values are read to the host once (:func:`_svd`).
+    Returns ``(site, σ, added)``: forward A (l, n, k') and σ (k', r); backward B (k', n, r)
+    and σ (l, k'); the number of directions added."""
+    l, n, r = psi.shape
+    if forward:
+        mat, hmat = psi.reshape(l * n, r), hpsi.reshape(l * n, r)
+    else:
+        mat = psi.permute(2, 1, 0).reshape(r * n, l)
+        hmat = hpsi.permute(2, 1, 0).reshape(r * n, l)
+    qm, sig = _adaptive_qr(mat)
+    N, k = qm.shape
+    room = min(cfg.adaptive_Dmax, N) - k
+    add = 0
+    if room > 0:
+        resid = hmat - qm @ (qm.mH @ hmat)
+        u, sv, _ = _svd(resid)
+        add = int(np.sum(sv.cpu().numpy() > cfg.adaptive_p_proj))
+        add = min(add, cfg.adaptive_dD, room, u.shape[1])
+        if add > 0:
+            # [Q | u] orthonormalised again and σ carried into that frame:
+            # a residual at the rounding level of H_eff ψ (complex64 under
+            # a small absolute adaptive_p_proj) has singular vectors that
+            # lie largely in span(Q); in exact arithmetic this is Q itself
+            qm, rq = K.thin_qr(torch.cat([qm, u[:, :add]], dim=1))
+            sig = rq[:, :k] @ sig
+    if forward:
+        return qm.reshape(l, n, -1), sig, add
+    return qm.reshape(r, n, -1).permute(2, 1, 0), sig.T, add
+
+
+def _truncate(site, sig, cfg, forward: bool):
+    """The SVD truncation of a bond after its K step: singular values of σ
+    at or below ``adaptive_p_svd``·σ₀ go (at least one is kept; its
+    singular values are read to the host once, :func:`_svd`), the kept
+    vectors rotate into the site.  A value under the SVD's resolution
+    (eps·σ₀ of float64) counts as that resolution: where p_svd lies below
+    it (the LH2 example's 1e-20) nothing goes, as LAPACK's SVD decides
+    there, whose exactly-zero directions come out at the rounding level;
+    cuSOLVER's come out below 1e-20·σ₀.  Returns ``(site, σ,
+    truncated)``; σ unchanged where nothing goes."""
+    u, sv, vh = _svd(sig)
+    s = sv.cpu().numpy()
+    if s.size and s[0] > 0:
+        seen = np.maximum(s, np.finfo(np.float64).eps * s[0])
+        keep = int(np.sum(seen > cfg.adaptive_p_svd * s[0]))
+    else:
+        keep = 1
+    keep = max(keep, 1)
+    if keep >= s.size:
+        return site, sig, False
+    sv = sv[:keep].to(sig.device, sig.dtype)
+    if forward:
+        # A ← A·u_k ; σ ← s_k·v_k†
+        return (torch.einsum("lnk,km->lnm", site, u[:, :keep]),
+                sv[:, None] * vh[:keep], True)
+    # B ← v_k†·B ; σ ← u_k·s_k
+    return (torch.einsum("mk,knr->mnr", vh[:keep], site),
+            u[:, :keep] * sv, True)
+
+
+def _restore_norm(sigs: list) -> list:
+    """The bond matrices of every state scaled so that their STACKED norm
+    is 1 again after a truncation (one host read).  Normalising each state
+    on its own would equalise the electronic populations."""
+    tot = sum(float(torch.sum(torch.abs(s) ** 2)) for s in sigs)
+    fac = 1.0 / math.sqrt(max(tot, 1e-60))
+    return [s * fac for s in sigs]
+
+
+def _pad_stack(cores) -> torch.Tensor:
+    """The states' cores (l, d, r) or bond matrices (l, r) of one site
+    stacked, those whose bonds an adaptive sweep left narrower than
+    another's padded with zero channels to the widest.  The zero channels
+    stay zero through every pair sum (each pair's blocks take them from
+    the same padded cores), so the stack's contractions (H_eff, K_eff,
+    transfers, norms, ⟨H⟩) are the states' own."""
+    l = max(c.shape[0] for c in cores)
+    r = max(c.shape[-1] for c in cores)
+    if all(c.shape[0] == l and c.shape[-1] == r for c in cores):
+        return torch.stack(cores)
+    out = cores[0].new_zeros((len(cores), l, *cores[0].shape[1:-1], r))
+    for z, c in enumerate(cores):
+        out[z, :c.shape[0], ..., :c.shape[-1]] = c
+    return out
+
+
+def _unpad(stack: torch.Tensor, shapes) -> list:
+    """Each state's own block of a padded stack (:func:`_pad_stack`):
+    ``stack[z]`` cut to ``shapes[z]`` (its first and last extents)."""
+    return [x[:s[0], ..., :s[-1]] for x, s in zip(stack.unbind(0), shapes)]
+
+
 class TDVPEngine:
     """Holds the MPS cores, fused MPO and cached environments; sweeps.
 
@@ -420,8 +565,10 @@ class TDVPEngine:
     unless the caller asks for the CPU (without a card this raises).
 
     With several electronic states (``len(cores) > 1``) the engine holds
-    one MPS per state, sharing their core shapes, and one fused MPO per
-    state pair ``(i, j)`` that couples (``pairs``, ``W_pairs``), grouped
+    one MPS per state, sharing their core shapes (under ``Config.adaptive``
+    each state sizes its own bonds, and the stacks of a site pad the
+    narrower with zero channels), and one fused MPO per state pair
+    ``(i, j)`` that couples (``pairs``, ``W_pairs``), grouped
     for batched sums (``pairset``: ``pairs.PairSet``).  Each entry of an
     environment stack then holds a tuple of blocks and a tuple of
     log-scales, one tensor per group with a leading pair axis.  Every site
@@ -434,6 +581,12 @@ class TDVPEngine:
             raise NotImplementedError(
                 f"splitting={config.splitting!r}: 4th-order compositions "
                 "are not ported yet (ROADMAP A10)"
+            )
+        if config.adaptive_masked:
+            raise NotImplementedError(
+                "adaptive_masked=True: the masked fixed-buffer a1TDVP sweep "
+                "is not ported yet (ROADMAP A9b); adaptive=True alone runs "
+                "the variable-width sweep"
             )
         self.config = config
         self.device = torch.device(device)
@@ -449,8 +602,10 @@ class TDVPEngine:
         self.nsite = len(cores[0])
         self.cores = [[self._put(c) for c in state] for state in cores]
         self.phys_dims = [int(c.shape[1]) for c in cores[0]]
-        if any(tuple(a.shape) != tuple(b.shape)
-               for state in cores[1:] for a, b in zip(state, cores[0])):
+        # an adaptive sweep sizes each state's bonds on its own
+        if not config.adaptive and any(
+                tuple(a.shape) != tuple(b.shape)
+                for state in cores[1:] for a, b in zip(state, cores[0])):
             raise ValueError("the electronic states' MPS must share their "
                              "core shapes")
         self.hamiltonian = hamiltonian
@@ -505,6 +660,9 @@ class TDVPEngine:
         #: launching every kernel from the host
         self.graph_steps = 0
         self.eager_steps = 0
+        #: gauge moves an adaptive sweep enriched (each orthonormalises the
+        #: enlarged frame with one more thin QR)
+        self.enrichments = 0
 
     # ---------------------------------------------------------- helpers
     def _put(self, a) -> torch.Tensor:
@@ -543,8 +701,10 @@ class TDVPEngine:
                       for g in ps.groups))
 
     def _site(self, p: int) -> torch.Tensor:
-        """Site p of every state, stacked (nstate, l, d, r)."""
-        return torch.stack([state[p] for state in self.cores])
+        """Site p of every state, stacked (nstate, l, d, r); under
+        ``Config.adaptive`` the narrower states padded with zero channels
+        (:func:`_pad_stack`)."""
+        return _pad_stack([state[p] for state in self.cores])
 
     def _trivial(self):
         real = torch.float64 if self.dtype == torch.complex128 else torch.float32
@@ -583,44 +743,37 @@ class TDVPEngine:
 
         Entries are (normalised block, log-scale); with several states
         (blocks, logs), tuples over the pair groups."""
-        if self.pairset is not None:
-            return self._env_stack_multi(forward=False)
-        stack = [self._trivial()]
-        for p in range(self.nsite - 1, 0, -1):
-            c = self.cores[0][p]
-            B, lg = stack[-1]
-            Bn, dl = _normalize_block(K.renorm_block_right(B, c, self.W[p], c))
-            stack.append((Bn, lg + dl))
-        return stack
+        return self._env_stack(forward=False)
 
     def build_left_env_stack(self) -> list:
         """[trivial, L(..0), …, L(..N−2)] — pop order matches a ← sweep."""
-        if self.pairset is not None:
-            return self._env_stack_multi(forward=True)
-        stack = [self._trivial()]
-        for p in range(self.nsite - 1):
-            c = self.cores[0][p]
-            B, lg = stack[-1]
-            Bn, dl = _normalize_block(K.renorm_block_left(B, c, self.W[p], c))
-            stack.append((Bn, lg + dl))
-        return stack
+        return self._env_stack(forward=True)
 
-    def _env_stack_multi(self, forward: bool) -> list:
-        """The environment stack of several states: each pair group's
-        blocks transferred through the sites (left to right with
-        ``forward``) at "highest" precision, at unit norm per pair."""
-        groups = self.pairset.groups
-        stack = [self._trivial_multi()]
+    def _env_stack(self, forward: bool) -> list:
+        stack = [self._trivial() if self.pairset is None
+                 else self._trivial_multi()]
         rng = range(self.nsite - 1) if forward else range(
             self.nsite - 1, 0, -1)
         for p in rng:
-            site = self._site(p)
-            blocks, logs = stack[-1]
-            new = [P.normalize(P.transfer(g, B, site, g.W[p], forward), lg)
-                   for g, B, lg in zip(groups, blocks, logs)]
-            stack.append((tuple(b for b, _ in new),
-                          tuple(lg for _, lg in new)))
+            stack.append(self._carry(stack[-1], [s[p] for s in self.cores], p,
+                                     forward))
         return stack
+
+    def _carry(self, entry, sites, p: int, forward: bool) -> tuple:
+        """An environment entry carried through site p of the states' cores
+        ``sites`` (left to right with ``forward``) at "highest" precision,
+        at unit norm (per pair with several states, the cores stacked by
+        :func:`_pad_stack`)."""
+        if self.pairset is None:
+            renorm = K.renorm_block_left if forward else K.renorm_block_right
+            block, log = entry
+            new, dl = _normalize_block(renorm(block, sites[0], self.W[p],
+                                              sites[0]))
+            return new, log + dl
+        site = _pad_stack(sites)
+        new = [P.normalize(P.transfer(g, B, site, g.W[p], forward), lg)
+               for g, B, lg in zip(self.pairset.groups, *entry)]
+        return tuple(b for b, _ in new), tuple(lg for _, lg in new)
 
     # ------------------------------------------------------------ sweeps
     def _half_sweep(self, scale: complex, forward: bool) -> None:
@@ -722,6 +875,139 @@ class TDVPEngine:
         self._env_side = "left" if forward else "right"
         return stats, relaxed, gs
 
+    def _half_sweep_adaptive(self, scale: complex, forward: bool) -> None:
+        """A half-sweep with bond growth and SVD truncation (a1TDVP; the JAX
+        package's ``_half_sweep_adaptive``), for one state or several.  At
+        each site:
+
+        1. the H step of the site as a last site: one state
+           :func:`_site_step` or :func:`_improved_site_step`, so the
+           Lanczos and ground-state kernels take it where they fit; several
+           states :func:`_multi_site_step` on their padded stack
+           (:func:`_pad_stack`), the pair sums of ``pairset``;
+        2. each state's gauge move with enrichment (:func:`_enrich`, on its
+           own width), H_eff ψ from the same sums;
+        3. the blocks of the enriched sites, and the K step on the enlarged
+           bond matrices (stacked over the states; skipped in improved
+           relaxation);
+        4. each state's SVD truncation (:func:`_truncate`), the stacked norm
+           restored where one went (:func:`_restore_norm`; not in improved
+           relaxation);
+        5. the bond matrices absorbed into the next site, and the blocks
+           built again where a site was truncated.
+
+        The exponentials and transfers run at "highest" precision with no
+        relaxed Krylov and no fused site, whatever the configuration says
+        (the JAX package's a1TDVP sweeps run full precision)."""
+        cfg = self.config.replace(matvec_precision="highest",
+                                  env_precision="highest",
+                                  krylov_relaxed=False, fused_site=False)
+        improved = cfg.relax == "improved"
+        one = self.pairset is None
+        groups = None if one else self.pairset.groups
+        if self.env_stack is None:
+            self.env_stack = (self.build_right_env_stack() if forward
+                              else self.build_left_env_stack())
+        env_stack = self.env_stack
+        grown = self._trivial() if one else self._trivial_multi()
+        sys_stack = [grown]
+        order = range(self.nsite) if forward else range(self.nsite - 1, -1, -1)
+        stats, relaxed, gs = [], [], []
+        for pos, p in enumerate(order):
+            last = pos == self.nsite - 1
+            env = env_stack.pop()
+            (Ls, lLs), (Rs, lRs) = (grown, env) if forward else (env, grown)
+            psis = [state[p] for state in self.cores]
+            shapes = [tuple(x.shape) for x in psis]
+            if one and improved:
+                psi, _, _, st, rel, g = _improved_site_step(
+                    psis[0], None, Ls, self.W[p], Rs, lLs, lRs, cfg=cfg,
+                    forward=forward, last=True)
+            elif one:
+                psi, _, _, st, rel = _site_step(
+                    psis[0], None, Ls, self.W[p], Rs, scale, lLs, lRs,
+                    cfg=cfg, forward=forward, last=True)
+            else:
+                Ws = [grp.W[p] for grp in groups]
+                out, _, _, st, rel, g = _multi_site_step(
+                    list(_pad_stack(psis).unbind(0)), None,
+                    (grown, env) if forward else (env, grown), Ws, scale,
+                    cfg=cfg, groups=groups, forward=forward, last=True)
+                x = torch.stack(out)
+            stats += st
+            relaxed += rel
+            if improved:
+                gs.append(g)
+            if one:
+                psis = [psi]
+                if not last:
+                    hpsis = [K.heff_apply(Ls, self.W[p], Rs, psi)
+                             * torch.exp(lLs + lRs)]
+            else:
+                psis = _unpad(x, shapes)
+                if not last:
+                    hfacs = [torch.exp(a + b) for a, b in zip(lLs, lRs)]
+                    mv = P.matvec(groups, Ls, Ws, Rs, hfacs, self.nstate,
+                                  x.shape[1:])
+                    hpsis = _unpad(mv(x.reshape(-1)).view(x.shape), shapes)
+            if last:
+                for state, psi in zip(self.cores, psis):
+                    state[p] = psi
+                break
+            q = p + 1 if forward else p - 1
+            sites, sigs, added = zip(*(_enrich(psi, h, cfg, forward)
+                                       for psi, h in zip(psis, hpsis)))
+            self.enrichments += sum(a > 0 for a in added)
+            new = None
+            if not improved:
+                # the K step of all states on the enlarged bonds, between
+                # the blocks of the enriched sites
+                new = self._carry(grown, sites, p, forward)
+                (blocks, logs), (env_blocks, env_logs) = new, env
+                kLs, kRs = ((blocks, env_blocks) if forward
+                            else (env_blocks, blocks))
+                if one:
+                    sig, st_k = _k_step(sigs[0], kLs, kRs,
+                                        torch.exp(logs + env_logs), -scale,
+                                        cfg, relaxed)
+                    sigs = [sig]
+                else:
+                    kfacs = [torch.exp(a + b) for a, b in zip(logs, env_logs)]
+                    sg = _pad_stack(sigs)
+                    out, st_k, n = _multi_expm(sg.reshape(-1), sg.shape[1:],
+                                               -scale, kfacs, cfg, groups,
+                                               kLs, kRs)
+                    relaxed.append(n)
+                    sigs = _unpad(out.view(sg.shape),
+                                  [tuple(c.shape) for c in sigs])
+                stats.append(st_k)
+            cut = [_truncate(a, sg, cfg, forward) for a, sg in zip(sites, sigs)]
+            sites = [a for a, _, _ in cut]
+            sigs = [sg for _, sg, _ in cut]
+            truncated = any(t for _, _, t in cut)
+            if truncated and cfg.conserve_norm and not improved:
+                sigs = _restore_norm(sigs)
+            for state, site, sig in zip(self.cores, sites, sigs):
+                state[p] = site
+                state[q] = (K.absorb_right(sig, state[q]) if forward
+                            else K.absorb_left(state[q], sig))
+            if cfg.pytest_enabled:
+                for site in sites:
+                    dev = K.gauge_error(site, left=forward)
+                    self._gauge_dev = (
+                        dev if self._gauge_dev is None
+                        else torch.maximum(self._gauge_dev, dev)
+                    )
+            if new is None or truncated:
+                # the blocks of the sites as they stay (untruncated sites'
+                # are the enriched sites', built for the K step)
+                new = self._carry(grown, sites, p, forward)
+            grown = new
+            sys_stack.append(new)
+        self.env_stack = sys_stack
+        self._env_side = "left" if forward else "right"
+        self._telemetry(stats, relaxed, gs)
+
     def _telemetry(self, stats, relaxed, gs) -> None:
         """Add a half-sweep's Krylov and ground-state status to the
         device-side telemetry."""
@@ -751,9 +1037,13 @@ class TDVPEngine:
         self._check_gauge()
 
     def _step(self, scale: complex) -> None:
-        """The two half-sweeps of one step, with nothing read back."""
-        self._half_sweep(scale, forward=True)
-        self._half_sweep(scale, forward=False)
+        """The two half-sweeps of one step: fixed-bond ones read nothing
+        back; adaptive ones (``Config.adaptive``) read each bond's singular
+        values twice."""
+        sweep = (self._half_sweep_adaptive if self.config.adaptive
+                 else self._half_sweep)
+        sweep(scale, forward=True)
+        sweep(scale, forward=False)
 
     def _check_gauge(self) -> None:
         """Raise if the gauge deviation gathered since the last check
@@ -781,7 +1071,10 @@ class TDVPEngine:
         kernel (:func:`_takes_gs_kernel`; never with several states): the
         einsum route reads one flag a restart.  The answer does not depend
         on the device: on the CPU it selects the same buffer program, run
-        uncaptured."""
+        uncaptured.  An adaptive step (``Config.adaptive``) changes its
+        shapes and reads the host, so it is never captured."""
+        if self.config.adaptive:
+            return False
         if self.config.relax == "improved":
             return all(
                 _takes_gs_kernel((c.shape[0] * c.shape[1], c.shape[2]),
@@ -811,7 +1104,13 @@ class TDVPEngine:
         the block is :meth:`propagate` step by step.  After a block the
         engine's cores and environment stack ARE the program's buffers: a
         tensor a caller kept from them is overwritten by the next block.
+        Under ``Config.adaptive`` the block is :meth:`propagate` step by
+        step, as in the JAX package.
         """
+        if self.config.adaptive:
+            for _ in range(nsteps):
+                self.propagate(dt)
+            return
         self._run_block(dt, nsteps, None)
 
     def propagate_steps_collect(
@@ -832,7 +1131,13 @@ class TDVPEngine:
         plan)``: ``items[i]`` carries a leading ``nsteps`` axis (row ``t``
         is the observable before step ``t``), ``plan`` the decode plan for
         :meth:`properties_resolve`, applied row by row after one
-        :func:`fetch_many`."""
+        :func:`fetch_many`.  An adaptive run (``Config.adaptive``) raises:
+        its steps change the shapes that the collection's rows pack, as in
+        the JAX package, whose Simulator runs such a run step by step."""
+        if self.config.adaptive:
+            raise NotImplementedError(
+                "propagate_steps_collect needs the fixed-bond sweep; an "
+                "adaptive run collects its observables step by step")
         collect = {"operator": operator, "autocorr": autocorr,
                    "energy": energy, "norm": norm, "populations": populations}
         rows, plan, layout = self._run_block(dt, nsteps, collect)

@@ -17,8 +17,9 @@ device→host copy (``tdvp.fetch_many``) and writes their rows in step
 order; :meth:`Properties.run_fused_block` runs a block of steps through
 ``TDVPEngine.propagate_steps_collect`` and writes its rows after one such
 read.  At stride 1 each step's observables are read with one packed copy
-(``properties_bundle``).  The rows are the same either way.  The
-adaptive-bond ``bonddim.dat`` is ROADMAP A9 and is left out.
+(``properties_bundle``).  The rows are the same either way.  An adaptive
+run (``Config.adaptive``) also writes ``bonddim.dat``, the bond dimensions
+of state 0 before each step, and reads its observables step by step.
 """
 
 from __future__ import annotations
@@ -200,6 +201,7 @@ class Properties:
             # evaluations sync the device anyway — run those steps inline
             and not want_obs
             and not want_rd
+            and not self.config.adaptive
         ):
             items, plan = self.engine.properties_submit(
                 self.model.hamiltonian,
@@ -449,6 +451,18 @@ class Properties:
             )
             f.write(
                 f"{t:6.9f}\t" + "\t".join(f"{p:6.9f}" for p in pops) + "\n"
+            )
+            f.flush()
+        if bonddim is not None and self.config.adaptive:
+            f = self._dat(
+                "bonddim",
+                f"# time [{unit}]\t" + "\t".join(
+                    f"bond_{i}" for i in range(len(bonddim))
+                ),
+            )
+            f.write(
+                f"{t:6.9f}\t"
+                + "\t".join(str(b) for b in bonddim) + "\n"
             )
             f.flush()
         if expectations and nstep % observables_per_step == 0:

@@ -18,8 +18,12 @@ ground state of ``model.primbas_gs`` projected onto the state's own
 primitives, and ``model.ints_prim_file`` caches the primitive-integral
 tables (``basis.primints.PrimInts``) as a pickle.
 
+``propagate(adaptive=True)`` grows and truncates the bonds (a1TDVP, the
+variable-width sweep: ``TDVPEngine._half_sweep_adaptive``), step by step
+from the host, and writes ``bonddim.dat``.
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
-adaptive bond dimension (A9), the 4th-order splittings, one-site gates,
+the masked adaptive sweep (A9b), the 4th-order splittings, one-site gates,
 Kraus maps and time-dependent Hamiltonians (A10), MCTDH, the MPS-MCTDH
 hybrid and CMF (A12), and the multi-device engines (A13).  The JAX package's advisory about small models
 on a TPU is not carried over.
@@ -163,8 +167,10 @@ class Simulator:
             raise _not_ported(
                 "parallel_split_indices / bond_tp_devices (the multi-device "
                 "engines)", "A13")
-        if adaptive:
-            raise _not_ported("adaptive bond dimension", "A9")
+        if adaptive_masked:
+            raise _not_ported(
+                "adaptive_masked=True (the masked fixed-buffer a1TDVP sweep)",
+                "A9b")
         if cmf:
             raise _not_ported("CMF propagation (MCTDH)", "A12")
         if splitting != "lt2":
@@ -187,6 +193,11 @@ class Simulator:
             thresh_exp=thresh_sil,
             space=self.model.space,
             conserve_norm=conserve_norm,
+            adaptive=adaptive,
+            adaptive_Dmax=adaptive_Dmax,
+            adaptive_dD=adaptive_dD,
+            adaptive_p_proj=adaptive_p_proj,
+            adaptive_p_svd=adaptive_p_svd,
             matvec_precision=matvec_precision,
             display_time_unit=display_time_unit,
             splitting=splitting,
@@ -481,9 +492,11 @@ class Simulator:
         # propagate_steps_collect with the per-step properties collected on
         # the device — rows identical to the per-step loop, one host read
         # per block.  Gated on fetch_stride > 1, so complex128 CPU runs
-        # (stride 1) keep the per-step loop.
+        # (stride 1) keep the per-step loop, and on the fixed-bond sweep
+        # (an adaptive step changes the shapes and reads the host).
         fused_blocks = (
             config.fetch_stride > 1
+            and not config.adaptive
             and not (observables and bool(self.model.observables))
             and reduced_density is None
             and (self.t2_trick or not autocorr)

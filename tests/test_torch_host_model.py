@@ -180,8 +180,7 @@ def _defs(path: str) -> dict[str, list[str]]:
 #: (JAX module, port module, {function: lines the port adds}); a function
 #: absent from the table is a verbatim copy, and every other line of the
 #: port's function must be one of the original's (what it drops is a cut:
-#: the adaptive bond file of A9, the device_io transfers, the TPU venue
-#: advisory)
+#: the device_io transfers, the TPU venue advisory)
 COPIES = [
     ("pytdscf_tpu/diagnostics.py", "pytdscf_torch/diagnostics.py", {}),
     ("pytdscf_tpu/basis/op_matrix.py", "pytdscf_torch/basis/op_matrix.py",

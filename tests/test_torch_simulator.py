@@ -177,7 +177,8 @@ def _sim(**init):
     (_sim(), {"cmf": True}, "A12"),
     (_sim(), {"parallel_split_indices": [(0, 2), (3, 5)]}, "A13"),
     (_sim(), {"bond_tp_devices": 2}, "A13"),
-    (_sim(), {"adaptive": True}, "A9"),
+    # the variable-width sweep is ported; the masked one is A9b
+    (_sim(), {"adaptive": True, "adaptive_masked": True}, "A9"),
     (_sim(), {"splitting": "suzuki4"}, "A10"),
     (_sim(), {"splitting": "yoshida4"}, "A10"),
     (_refuse_model("one_gate_to_apply"), {}, "A10"),
